@@ -3,19 +3,30 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-It builds the port's CUDA kernel from the sources in the checkout, holds it
-bit-exactly against its plain torch version, then runs the serving path at
-the full width of yi-6b (32 layers, d_model 4096, bf16, 12.1 GB of weights
-drawn on the card from a seeded generator):
+It builds the port's three CUDA kernels from the sources in the checkout
+(one nvcc each, all at once) and holds each against its plain torch
+version on edge cases: the fingerprint bit-exactly, flash attention and the
+SSD scan within the JAX kernel tests' tolerances. It checks the f32 models
+of each family on the card against the CPU, then runs the serving path
 
     save (full, fingerprinted) -> restore + serve -> incremental save
     -> sparse refresh -> serve
+
+at the full width of yi-6b (dense, 12.1 GB of bf16 weights) and of
+hymba-1.5b (hybrid, 2.8 GB, 4096-token prompts), weights drawn on the card
+from a seeded generator. On every layer of hymba's prefill it then calls
+the flash attention and SSD scan entry points on the tensors the model
+computes and holds them against the model's own results (the served
+models, as in the JAX package, run the plain attention and scan), and
+times each kernel beside its bound, its plain version and, for attention,
+``scaled_dot_product_attention``; last at yi-6b's attention and
+mamba2-130m's scan shapes.
 
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
 Without a CUDA device it exits non-zero before printing any result. The
-temporary store lives under the system temp directory and is removed at
+temporary stores live under the system temp directory and are removed at
 exit.
 """
 from __future__ import annotations
@@ -39,6 +50,7 @@ import torch  # noqa: E402
 # (the fingerprint's work is 32-bit integer ALU operations).
 HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 on the tensor cores
 # integer operations per u32 lane of the fingerprint: 3 multiplies, 1 add,
 # 2 xors and 1 shift in the mix, 1 xor and 1 add into the row's sums
 FP_OPS_PER_LANE = 9
@@ -71,14 +83,23 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build():
+    """Build every kernel of the port at once (one nvcc per source)."""
     from repro_torch.kernels.build import build_all
-    from repro_torch.kernels.fingerprint import ops
+    from repro_torch.kernels.fingerprint import ops as fp_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    mods = {"fingerprint": fp_ops, "flash_attention": fa_ops,
+            "ssd_scan": ssd_ops}
     t0 = time.perf_counter()
-    paths = build_all({"fingerprint": ops.SOURCE})
-    ops.load_library()
+    paths = build_all({name: m.SOURCE for name, m in mods.items()})
+    for m in mods.values():
+        m.load_library()
     secs = time.perf_counter() - t0
-    with open(paths["fingerprint"] + ".ptxas.txt") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+    ptxas = {}
+    for name, path in paths.items():
+        with open(path + ".ptxas.txt") as f:
+            ptxas[name] = [ln.strip() for ln in f
+                           if "registers" in ln or "spill" in ln]
     log("build", seconds=secs, card=torch.cuda.get_device_name(0),
         cuda=torch.version.cuda, torch=torch.__version__,
         built=sorted(paths), ptxas=ptxas)
@@ -129,7 +150,7 @@ def phase_kernel_edges(dev) -> int:
     return rows
 
 
-def phase_kernel_full(payload_union, chunk_bytes) -> dict:
+def phase_fingerprint_full(payload_union, chunk_bytes) -> dict:
     """The kernel at the main path's shapes: the whole full-width tree."""
     from repro_torch.core.chunker import dtype_str, shape_of
     from repro_torch.core.fingerprint import chunk_geometry
@@ -156,41 +177,362 @@ def phase_kernel_full(payload_union, chunk_bytes) -> dict:
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
            "tree_bytes": in_bytes, "rows": rows, "lanes": lanes}
-    log("kernel_full", **res)
+    log("fingerprint_full", **res)
     return res
 
 
+# -------------------------------------------------- flash attention, SSD scan
+# B, Hq, KVH, S, D, window, causal, scale
+FA_EDGE_CASES = [
+    (2, 4, 2, 128, 64, None, True, None),     # tests/test_kernels.py FA_CASES
+    (1, 4, 4, 256, 32, None, True, None),
+    (2, 8, 2, 128, 64, 32, True, None),
+    (1, 2, 1, 64, 128, None, True, None),
+    (1, 4, 2, 200, 64, None, True, None),     # ragged S: a partial last tile
+    (2, 4, 2, 200, 128, 50, True, None),      # ragged S inside a band
+    (1, 4, 1, 128, 32, None, False, None),    # not causal
+    (1, 4, 2, 160, 64, 48, False, 0.3),       # a window alone, explicit scale
+    (1, 2, 1, 256, 64, 40, True, None),       # first KV tile wholly masked
+]                                             # for the late rows of a tile
+# B, S, H, P, G, N, chunk, |A| scale
+SSD_EDGE_CASES = [
+    (2, 64, 3, 8, 1, 16, 16, 1.0),            # tests/test_kernels.py SSD_CASES
+    (1, 128, 4, 16, 2, 8, 32, 1.0),
+    (2, 64, 4, 8, 4, 16, 64, 1.0),
+    (1, 192, 2, 64, 1, 128, 192, 0.1),        # N 128; kernel chunks 128 + 64
+    (1, 256, 4, 24, 2, 16, 128, 1.0),         # P 24: a partial P tile
+    (2, 256, 3, 64, 1, 16, 128, 40.0),        # exp above the diagonal is inf
+]
+FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _flash_inputs(g, B, Hq, KVH, S, D, dtype, dev):
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((B, Hq, S, D), (B, KVH, S, D), (B, KVH, S, D)))
+
+
+def _ssd_inputs_seeded(g, B, S, H, P, G, N, a_scale, dtype, dev):
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x = rn(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -torch.exp(rn(H) * 0.5) * a_scale
+    Bc = (rn(B, S, G, N) * 0.3).to(dtype)
+    Cc = (rn(B, S, G, N) * 0.3).to(dtype)
+    D = rn(H) * 0.1
+    return x, dt, A, Bc, Cc, D
+
+
+def phase_flash_edges(dev) -> None:
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reference)
+    g = torch.Generator(device=dev).manual_seed(21)
+    worst = {}
+    for case in FA_EDGE_CASES:
+        B, Hq, KVH, S, D, win, causal, scale = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(g, B, Hq, KVH, S, D, dtype, dev)
+            kw = dict(causal=causal, window=win, scale=scale)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = _max_err(got, reference(q, k, v, **kw))
+            check(err < FA_TOL[dtype], f"flash {case} {dtype}: {err}")
+            name = str(dtype).split(".")[-1]
+            worst[name] = max(worst.get(name, 0.0), err)
+    log("kernel_edges_flash", cases=len(FA_EDGE_CASES), dtypes=2,
+        max_abs_err=worst, tol={"float32": 3e-5, "bfloat16": 3e-2})
+
+
+def phase_ssd_edges(dev) -> None:
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.models.ssm import ssd_chunked, ssd_reference
+    g = torch.Generator(device=dev).manual_seed(22)
+    worst = {}
+    for case in SSD_EDGE_CASES:
+        B, S, H, P, G, N, chunk, a_scale = case
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs_seeded(g, B, S, H, P, G, N, a_scale, dtype,
+                                      dev)
+            y, h = ssd(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            y_p, h_p = ssd_chunked(*args, chunk=chunk)
+            y_r, h_r = ssd_reference(*args)
+            check(bool(torch.isfinite(y.float()).all()
+                       and torch.isfinite(h).all()), f"ssd {case}: not finite")
+            # relative to the output's scale (at least 1): rounding is
+            # relative, and at N 128 or with a chunk cut at other points
+            # than the plain version's (chunk 192: the kernel's 128 + 64)
+            # the f32 outputs reach magnitudes the JAX test's never do
+            errs = tuple(_max_err(a, b) / max(1.0, float(b.float().abs()
+                                                         .max()))
+                         for a, b in ((y, y_p), (h, h_p)))
+            check(max(errs) < SSD_TOL[dtype], f"ssd {case} {dtype}: {errs}")
+            name = str(dtype).split(".")[-1]
+            w = worst.setdefault(name, {"rel_vs_plain": 0.0,
+                                        "abs_vs_reference": 0.0})
+            w["rel_vs_plain"] = max(w["rel_vs_plain"], *errs)
+            w["abs_vs_reference"] = max(w["abs_vs_reference"],
+                                        _max_err(y, y_r), _max_err(h, h_r))
+    log("kernel_edges_ssd", cases=len(SSD_EDGE_CASES), dtypes=2,
+        max_err=worst, tol={"float32": 2e-5, "bfloat16": 5e-2})
+
+
+def _ops_rate(dtype) -> float:
+    return BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16 \
+        else ALU32_OPS_PER_S
+
+
+def _bound(nbytes: int, ops: float, dtype) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / _ops_rate(dtype) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "bytes": nbytes, "ops": ops}
+
+
+def flash_bound(q, k, causal: bool, window) -> dict:
+    """Unmasked (query, key) pairs x 4 D operations (2 D for q.k, 2 D for
+    p.v); q, k, v read once and o written once."""
+    B, Hq, S, D = q.shape
+    pos = np.arange(S)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(S, int)
+    hi = pos + 1 if causal else np.full(S, S)
+    pairs = B * Hq * int((hi - lo).sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return _bound(nbytes, 4.0 * D * pairs, q.dtype)
+
+
+def ssd_bound(x, Bc, chunk: int) -> dict:
+    """Per chunk of Q steps with T = Q (Q + 1) / 2 pairs i >= j: C.B^T 2 N T
+    a group, and a head 2 P T (scores.x) + 3 T (decay, dt) + 2 Q N P
+    (incoming state) + 2 Q N P (state update) + 2 Q P (skip). Bytes: x, dt,
+    B, C read once, y and h written once."""
+    B, S, H, P = x.shape
+    G, N = Bc.shape[2], Bc.shape[3]
+    chunk = min(chunk, S)
+    while S % chunk:           # the chunk the function runs at
+        chunk //= 2
+    nc, Q = S // chunk, chunk
+    T = Q * (Q + 1) / 2
+    ops = B * nc * (G * 2 * N * T + H * (2 * P * T + 3 * T + 4 * Q * N * P
+                                         + 2 * Q * P))
+    nbytes = 2 * x.numel() * x.element_size() + B * S * H * 4 \
+        + 2 * Bc.numel() * Bc.element_size() + B * H * P * N * 4 + 2 * H * 4
+    return _bound(nbytes, ops, x.dtype)
+
+
+def time_flash(q, k, v, *, causal: bool, window, reps: int = 5) -> dict:
+    """The flash kernel against its plain version and SDPA, on (B, H, S, D)
+    inputs."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reference)
+    F = torch.nn.functional
+    kw = dict(causal=causal, window=window)
+    got = flash_attention(q, k, v, **kw)
+    res = {"shape": list(q.shape), "kv_heads": k.shape[1], "causal": causal,
+           "window": window, "dtype": str(q.dtype).split(".")[-1],
+           "max_abs_err": _max_err(got, reference(q, k, v, **kw))}
+    check(res["max_abs_err"] < FA_TOL[q.dtype],
+          f"flash at {res['shape']}: {res['max_abs_err']}")
+    res["ms"] = cuda_ms(lambda: flash_attention(q, k, v, **kw), reps)
+    res["plain_ms"] = cuda_ms(lambda: reference(q, k, v, **kw), 2)
+    if window:
+        pos = torch.arange(q.shape[2], device=q.device)
+        keep = pos[None, :] <= pos[:, None] if causal else \
+            torch.ones(q.shape[2], q.shape[2], dtype=torch.bool,
+                       device=q.device)
+        keep = keep & (pos[:, None] - pos[None, :] < window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=keep, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+    res["library_ms"] = cuda_ms(lib, reps)
+    res["library"] = "torch.nn.functional.scaled_dot_product_attention"
+    res.update(flash_bound(q, k, causal, window))
+    return res
+
+
+def time_ssd(x, dt, A, Bc, Cc, D, *, chunk: int, reps: int = 5) -> dict:
+    """The SSD kernel against its plain version (no single PyTorch call
+    computes it, so no library time)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.models.ssm import ssd_chunked
+    y, h = ssd(x, dt, A, Bc, Cc, D, chunk=chunk)
+    y_p, h_p = ssd_chunked(x, dt, A, Bc, Cc, D, chunk=chunk)
+    res = {"shape": list(x.shape), "groups": Bc.shape[2],
+           "state": Bc.shape[3], "chunk": chunk,
+           "dtype": str(x.dtype).split(".")[-1],
+           "max_abs_err": max(_max_err(y, y_p), _max_err(h, h_p))}
+    check(res["max_abs_err"] < SSD_TOL[x.dtype],
+          f"ssd at {res['shape']}: {res['max_abs_err']}")
+    res["ms"] = cuda_ms(lambda: ssd(x, dt, A, Bc, Cc, D, chunk=chunk), reps)
+    res["plain_ms"] = cuda_ms(
+        lambda: ssd_chunked(x, dt, A, Bc, Cc, D, chunk=chunk), 2)
+    res["library_ms"] = None
+    res.update(ssd_bound(x, Bc, chunk))
+    return res
+
+
+def phase_seeded_shapes(dev) -> dict:
+    """The kernels at the widths of the repo's other models: yi-6b's
+    attention (causal, no window) and mamba2-130m's scan (N 128)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = _flash_inputs(g, 1, 32, 4, 4096, 128, torch.bfloat16, dev)
+    flash = time_flash(q, k, v, causal=True, window=None)
+    flash["model"] = "yi-6b"
+    del q, k, v
+    args = _ssd_inputs_seeded(g, 2, 4096, 24, 64, 1, 128, 1.0,
+                              torch.bfloat16, dev)
+    scan = time_ssd(*args, chunk=128)
+    scan["model"] = "mamba2-130m"
+    log("kernel_seeded", flash=flash, ssd=scan)
+    return {"flash": flash, "ssd": scan}
+
+
 def phase_reference_check(dev) -> None:
-    """The port's model on the card against the same model on the CPU, on
-    a small f32 input (the CPU path is held against the JAX package by the
-    tests). TF32 is off for f32 matmuls here and below."""
+    """The port's models on the card against the same models on the CPU, on
+    a small f32 input, one arch of each family the port serves (the CPU
+    path is held against the JAX package by the tests). TF32 is off for f32
+    matmuls here and below."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_params, prefill
     from repro_torch.serve import Engine
-    cfg = get_smoke_config("yi-6b").replace(param_dtype="float32",
-                                            compute_dtype="float32")
-    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab, (2, 24)))
-    with torch.inference_mode():
-        _, cpu_logits = prefill(cfg, params, toks)
-        _, dev_logits = prefill(cfg, _to(params, dev), toks.to(dev))
-    err = float((dev_logits.cpu() - cpu_logits).abs().max())
-    check(err <= 1e-4, f"f32 prefill logits, card vs CPU: {err} > 1e-4")
-    prompts = toks.numpy().astype(np.int32)
-    t_cpu = Engine(cfg, params, max_len=40, device="cpu").generate(prompts, 8)
-    t_dev = Engine(cfg, params, max_len=40, device=dev).generate(prompts, 8)
-    check(np.array_equal(t_cpu.tokens, t_dev.tokens),
-          "greedy tokens differ between card and CPU")
-    log("reference_check", prefill_max_abs_err=err, tol=1e-4,
+    errs = {}
+    for arch in ("yi-6b", "mamba2-130m", "hymba-1.5b"):
+        cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                             compute_dtype="float32")
+        params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, (2, 24)))
+        with torch.inference_mode():
+            _, cpu_logits = prefill(cfg, params, toks)
+            _, dev_logits = prefill(cfg, _to(params, dev), toks.to(dev))
+        err = float((dev_logits.cpu() - cpu_logits).abs().max())
+        check(err <= 1e-4, f"{arch}: f32 prefill logits, card vs CPU: "
+              f"{err} > 1e-4")
+        prompts = toks.numpy().astype(np.int32)
+        t_cpu = Engine(cfg, params, max_len=40, device="cpu").generate(
+            prompts, 8)
+        t_dev = Engine(cfg, params, max_len=40, device=dev).generate(
+            prompts, 8)
+        check(np.array_equal(t_cpu.tokens, t_dev.tokens),
+              f"{arch}: greedy tokens differ between card and CPU")
+        errs[arch] = err
+    log("reference_check", prefill_max_abs_err=errs, tol=1e-4,
         tokens_equal=True)
 
 
+def phase_kernel_path(cfg, params, prompts, dev) -> dict:
+    """The flash attention and SSD scan entry points, driven on the tensors
+    the served hybrid model's prefill computes in every layer (q, k, v
+    after RoPE through the port's own ``_qkv``; x, dt, A, Bc, Cc, D through
+    the first half of its ``apply_ssm_core``), each output held against the
+    model's own ``attention`` / ``ssd_chunked`` result on the same tensors.
+    The model itself calls neither kernel, as in the JAX package. Launches
+    are counted from here to the end of the layer loop. Returns the counts,
+    the errors and layer 0's tensors."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.models.attention import attention
+    from repro_torch.models.blocks import (_qkv, _repeat_kv,
+                                           apply_hybrid_block,
+                                           ssm_scan_inputs)
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import _layer, embed_tokens
+    from repro_torch.models.ssm import ssd_chunked
+    toks = torch.as_tensor(prompts, device=dev).long()
+    B, S = toks.shape
+    positions = torch.arange(S, device=dev).expand(B, S)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    err = {"flash_vs_model": 0.0, "ssd_y_vs_model": 0.0,
+           "ssd_h_vs_model": 0.0}
+    layer0 = None
+    t0 = time.perf_counter()
+    flash_attention.launches = 0
+    ssd.launches = 0
+    with torch.inference_mode():
+        x = embed_tokens(cfg, params, toks)
+        for i in range(cfg.n_layers):
+            p = _layer(params, i)
+            h = rms_norm(x, p["norm"], cfg.rms_eps)
+            q, k, v = _qkv(cfg, p["attn"], h, positions)
+            _, _, scan = ssm_scan_inputs(cfg, p["ssm"], h)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            o = flash_attention(qt, kt, vt, causal=True, window=cfg.window)
+            y, hs = ssd(**scan, chunk=cfg.ssm_chunk)
+            o_model = attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                                causal=True, window=cfg.window,
+                                impl=cfg.attn_impl, kv_block=cfg.kv_block,
+                                q_block=cfg.q_block,
+                                score_dtype=cfg.score_dtype)
+            y_model, h_model = ssd_chunked(**scan, chunk=cfg.ssm_chunk)
+            err["flash_vs_model"] = max(err["flash_vs_model"], _max_err(
+                o.transpose(1, 2), o_model))
+            err["ssd_y_vs_model"] = max(err["ssd_y_vs_model"],
+                                        _max_err(y, y_model))
+            err["ssd_h_vs_model"] = max(err["ssd_h_vs_model"],
+                                        _max_err(hs, h_model))
+            if i == 0:
+                layer0 = {"qkv": (qt, kt, vt), "scan": scan}
+            x, _ = apply_hybrid_block(cfg, p, x, positions)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd.launches}
+    dtype = params["embed"].dtype
+    check(err["flash_vs_model"] < FA_TOL[dtype],
+          f"flash kernel vs the model's attention: {err['flash_vs_model']}")
+    check(max(err["ssd_y_vs_model"], err["ssd_h_vs_model"]) < SSD_TOL[dtype],
+          f"ssd kernel vs the model's ssd_chunked: {err}")
+    check(launches == {"flash_attention": cfg.n_layers,
+                       "ssd_scan": cfg.n_layers},
+          f"kernel launches on the path: {launches}")
+    log("kernel_path", seconds=time.perf_counter() - t0, layers=cfg.n_layers,
+        batch=B, prompt_len=S, launches=launches, max_abs_err=err,
+        tol={"flash": FA_TOL[dtype], "ssd": SSD_TOL[dtype]})
+    return {"launches": launches, "err": err, "layer0": layer0}
+
+
+def phase_kernel_full(layer0, cfg) -> dict:
+    """Both kernels timed on layer 0's tensors of the served prefill."""
+    qt, kt, vt = layer0["qkv"]
+    flash = time_flash(qt, kt, vt, causal=True, window=cfg.window)
+    scan = time_ssd(**layer0["scan"], chunk=cfg.ssm_chunk)
+    flash["model"] = scan["model"] = cfg.name
+    log("kernel_full", flash=flash, ssd=scan)
+    return {"flash": flash, "ssd": scan}
+
+
+def _edit_leaf(params, path: str, layer: int):
+    """A copy-on-write copy of ``params`` in which layer ``layer`` of the
+    leaf at ``path`` (e.g. "blocks/ssm/w_x") moves by 0.01 -> (new params,
+    the edited leaf)."""
+    parts = path.split("/")
+    new = dict(params)
+    node, src = new, params
+    for p in parts[:-1]:
+        src = src[p]
+        node[p] = dict(src)
+        node = node[p]
+    leaf = src[parts[-1]].clone()
+    leaf[layer] += 0.01
+    node[parts[-1]] = leaf
+    return new, leaf
+
+
 def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
-                 prompt_len: int, new_tokens: int) -> dict:
+                 prompt_len: int, new_tokens: int, edit: str) -> dict:
     """save -> restore + serve -> incremental save -> sparse refresh ->
-    serve, through the entry points a user calls. Returns the counts the
-    caller checks against the kernels."""
+    serve, through the entry points a user calls. Between the saves, one
+    layer of the leaf ``edit`` and ``final_norm`` change on the device, and
+    the sparse plan must name exactly those two leaves. Returns the counts
+    the caller checks against the kernels, the engine and the prompts."""
     from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
     from repro_torch.ckpt.manager import unflatten_tree
     from repro_torch.core import tree_pack_index
@@ -210,7 +552,7 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
             union.update(tree)
         _, total_chunks, _ = tree_pack_index(union, chunk_bytes)
         if dev.type == "cuda":
-            out["kernel"] = phase_kernel_full(union, chunk_bytes)
+            out["kernel"] = phase_fingerprint_full(union, chunk_bytes)
 
         # ---- the main path: launches are counted from here to the refresh
         fingerprint_leaves.launches = 0
@@ -244,19 +586,15 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
             tokens_per_s=res.tokens.size / gen_s,
             first_tokens=res.tokens[0, :8].tolist())
 
-        # a few leaves change on the device: one layer of wk, and final_norm
+        # a few leaves change on the device: one layer of ``edit``, and
+        # final_norm
         layer = min(3, cfg.n_layers - 1)
-        params1 = dict(params)
-        params1["blocks"] = dict(params["blocks"])
-        wk = params["blocks"]["wk"].clone()
-        wk[layer] += 0.01
-        params1["blocks"]["wk"] = wk
+        params1, leaf = _edit_leaf(params, edit, layer)
         params1["final_norm"] = params["final_norm"] * 1.5
-        layer_bytes = wk[layer].numel() * wk.element_size()
-        check((layer * layer_bytes) % chunk_bytes == 0,
-              "the edited layer must start on a chunk boundary")
+        layer_bytes = leaf[layer].numel() * leaf.element_size()
+        first, last = layer * layer_bytes, (layer + 1) * layer_bytes - 1
         # chunks that changed: the layer's, final_norm's and the step's
-        expect_chunks = -(-layer_bytes // chunk_bytes) + 1 + 1
+        expect_chunks = last // chunk_bytes - first // chunk_bytes + 1 + 1 + 1
         n0 = fingerprint_leaves.launches
         t0 = time.perf_counter()
         r1 = mgr.save(1, params1, {})
@@ -287,7 +625,7 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
         t0 = time.perf_counter()
         changed = changed_tensor_paths(mgr.store, mgr.image, mgr.tag_of(0),
                                        mgr.tag_of(1))
-        check(changed == {"params/blocks/wk", "params/final_norm",
+        check(changed == {f"params/{edit}", "params/final_norm",
                           "opt/__step__"}, f"sparse plan {changed}")
         names = sorted(n for n in changed if n.startswith("params/"))
         part = mgr.store.load_image_payload(mgr.image, mgr.tag_of(1),
@@ -322,49 +660,102 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
             ms_per_op=dec_ms / dec_ops)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    out.update(engine=eng, prompts=prompts)
     return out
+
+
+def run_model(arch: str, dev, edit: str, batch: int, prompt_len: int,
+              new_tokens: int) -> dict:
+    """One model at full width, weights drawn on the card from a seeded
+    generator, through ``serving_path``; checks the fingerprint launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    log("init", arch=arch, seconds=time.perf_counter() - t0,
+        param_bytes=_nbytes(params), layers=cfg.n_layers,
+        d_model=cfg.d_model, dtype=cfg.param_dtype)
+    out = serving_path(cfg, params, dev, chunk_bytes=1 << 20, batch=batch,
+                       prompt_len=prompt_len, new_tokens=new_tokens,
+                       edit=edit)
+    check(out["save2_launches"] == 1,
+          f"incremental save made {out['save2_launches']} kernel launches")
+    check(out["launches"] >= 1, "the main path never launched the kernel")
+    out["cfg"] = cfg
+    return out
+
+
+def _row(name, source, replaces, launches, res, other=None) -> dict:
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           **{k: res[k] for k in keys}}
+    row.update({k: res[k] for k in ("shape", "model", "dtype", "library")
+                if k in res})
+    if other is not None:
+        row["other_shapes"] = [{k: other[k] for k in keys + (
+            "shape", "model", "bytes_bound_ms", "ops_bound_ms") if k in other}]
+    return row
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_params
-
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
     phase_build()
     phase_kernel_edges(dev)
+    phase_flash_edges(dev)
+    phase_ssd_edges(dev)
     phase_reference_check(dev)
 
-    cfg = get_config("yi-6b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    log("init", seconds=time.perf_counter() - t0,
-        param_bytes=_nbytes(params), layers=cfg.n_layers,
-        d_model=cfg.d_model, dtype=cfg.param_dtype)
-    out = serving_path(cfg, params, dev, chunk_bytes=1 << 20, batch=4,
-                       prompt_len=128, new_tokens=32)
-    check(out["save2_launches"] == 1,
-          f"incremental save made {out['save2_launches']} kernel launches")
-    check(out["launches"] >= 1, "the main path never launched the kernel")
+    # slice 1: the dense family at full width
+    yi = run_model("yi-6b", dev, edit="blocks/wk", batch=4, prompt_len=128,
+                   new_tokens=32)
+    fp, fp_launches = yi["kernel"], yi["launches"]
+    del yi
+    torch.cuda.empty_cache()
 
-    kernel = out["kernel"]
-    summary = {"kernels": [{
-        "name": "fingerprint", "route": "cuda",
-        "source": "src/repro_torch/kernels/fingerprint/csrc/fingerprint.cu",
-        "replaces": "src/repro/kernels/fingerprint/kernel.py:44",
-        "launches": out["launches"], "check": "bit-exact",
-        "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": None,
-        "tree_bytes": kernel["tree_bytes"], "rows": kernel["rows"]}]}
+    # slice 2: the hybrid family at full width; then the two kernels' own
+    # entry points on the tensors its prefill computes
+    hy = run_model("hymba-1.5b", dev, edit="blocks/ssm/w_x", batch=2,
+                   prompt_len=4096, new_tokens=32)
+    cfg = hy["cfg"]
+    path = phase_kernel_path(cfg, hy["engine"].params, hy["prompts"], dev)
+    full = phase_kernel_full(path["layer0"], cfg)
+    fp_hybrid_launches, launches = hy["launches"], path["launches"]
+    del hy, path
+    torch.cuda.empty_cache()
+    seeded = phase_seeded_shapes(dev)
+
+    fp_row = _row("fingerprint",
+                  "src/repro_torch/kernels/fingerprint/csrc/fingerprint.cu",
+                  "src/repro/kernels/fingerprint/kernel.py:44",
+                  fp_launches, dict(fp, shape=[fp["rows"]],
+                                       model="yi-6b", library_ms=None))
+    fp_row.update(check="bit-exact", tree_bytes=fp["tree_bytes"],
+                  launches_hybrid_path=fp_hybrid_launches)
+    summary = {"kernels": [
+        fp_row,
+        _row("flash_attention",
+             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:33",
+             launches["flash_attention"], full["flash"],
+             seeded["flash"]),
+        _row("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:25",
+             launches["ssd_scan"], full["ssd"], seeded["ssd"]),
+    ]}
     card = subprocess.run(CARD_SHELL, capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()
+    log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps(summary), flush=True)
     print(card[0], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """ModelConfig — one dataclass describes every architecture in the zoo
 (a copy of ``repro/models/config.py``, so configs copy verbatim; the port
-runs the dense family so far).
+runs the dense, ssm and hybrid families so far).
 
 Families:
   dense   — standard decoder (GQA/MQA attention + gated MLP)

@@ -1,0 +1,175 @@
+"""The port's SSD scan against the JAX package's: the ``ssd`` entry point
+(its plain path, on CPU tensors), ``ssd_chunked`` and ``ssd_reference``
+against the Pallas kernel in interpret mode and the JAX recurrence, on the
+shapes of tests/test_kernels.py; then the pieces of the Mamba-2 block that
+surround the scan (initial state, one decode step, the causal convs), and a
+decay steep enough that exp above the chunk's diagonal overflows.
+
+Tolerances are the JAX kernel tests' own: 2e-5 in f32 (sums in other
+orders), 5e-2 in bf16 (one bf16 rounding of y). The CUDA kernel itself runs
+only on a card: chip_smoke.py holds it against this plain path there.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# small shapes: one thread each, so the suite's parallel workers do not
+# oversubscribe the cores that timing-sensitive tests share with them
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ssd_scan.ops import ssd as jax_ssd  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+
+SSD_CASES = [
+    # B, S, H, P, G, N, chunk   (tests/test_kernels.py)
+    (2, 64, 3, 8, 1, 16, 16),
+    (1, 128, 4, 16, 2, 8, 32),
+    (2, 64, 4, 8, 4, 16, 64),
+]
+
+
+def _softplus(x):
+    return np.logaddexp(x, 0.0).astype(np.float32)
+
+
+def _inputs(B, S, H, P, G, N, dtype, seed=1, a_scale=1.0):
+    """(jax arrays, torch tensors) of x, dt, A, Bc, Cc, D, as the JAX kernel
+    test draws them: x, Bc, Cc in ``dtype``, the rest f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = _softplus(rng.standard_normal((B, S, H)))
+    A = (-np.exp(rng.standard_normal(H) * 0.5) * a_scale).astype(np.float32)
+    Bc = (rng.standard_normal((B, S, G, N)) * 0.3).astype(np.float32)
+    Cc = (rng.standard_normal((B, S, G, N)) * 0.3).astype(np.float32)
+    D = (rng.standard_normal(H) * 0.1).astype(np.float32)
+    typed = {0, 3, 4}
+    arrs = (x, dt, A, Bc, Cc, D)
+    jx = [jnp.asarray(a, getattr(jnp, dtype) if i in typed else jnp.float32)
+          for i, a in enumerate(arrs)]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype) if i in typed
+                                 else torch.float32)
+          for i, a in enumerate(arrs)]
+    return jx, tx
+
+
+def _err(got, want) -> float:
+    return float(np.abs(got.float().numpy()
+                        - np.asarray(want, np.float32)).max())
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_matches_jax_kernel_and_reference(B, S, H, P, G, N, chunk,
+                                              dtype):
+    jx, tx = _inputs(B, S, H, P, G, N, dtype)
+    y_k, h_k = jax_ssd(*jx, chunk=chunk, interpret=True)
+    y_r, h_r = jssm.ssd_reference(*jx)
+    n0 = ops.ssd.launches
+    y, h = ops.ssd(*tx, chunk=chunk)
+    assert ops.ssd.launches == n0                  # CPU: the plain version
+    assert y.dtype == tx[0].dtype and h.dtype == torch.float32
+    assert h.shape == (B, H, P, N)
+    for got, want in ((y, y_k), (h, h_k), (y, y_r), (h, h_r)):
+        assert _err(got, want) < TOL[dtype]
+    # the port's own oracle, against the JAX one
+    y_pr, h_pr = tssm.ssd_reference(*tx)
+    assert _err(y_pr, y_r) < TOL[dtype] and _err(h_pr, h_r) < TOL[dtype]
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_chunked_with_initial_state_matches_jax(G):
+    jx, tx = _inputs(2, 48, 4, 8, G, 8, "float32", seed=4)
+    h0 = np.random.default_rng(5).standard_normal((2, 4, 8, 8)) \
+        .astype(np.float32)
+    y_j, h_j = jssm.ssd_chunked(*jx, chunk=16, h0=jnp.asarray(h0))
+    y_t, h_t = tssm.ssd_chunked(*tx, chunk=16, h0=torch.from_numpy(h0))
+    assert _err(y_t, y_j) < TOL["float32"] and _err(h_t, h_j) < TOL["float32"]
+    y_r, h_r = tssm.ssd_reference(*tx, h0=torch.from_numpy(h0))
+    assert _err(y_t, y_r.numpy()) < TOL["float32"]
+    assert _err(h_t, h_r.numpy()) < TOL["float32"]
+
+
+def test_steep_decay_gives_no_nan():
+    """|A| dt ~ 30 a step: exp(L_i - L_j) above the diagonal is inf, and a
+    product with the causal mask there would be NaN."""
+    jx, tx = _inputs(1, 64, 3, 8, 1, 16, "float32", seed=6, a_scale=40.0)
+    y, h = ops.ssd(*tx, chunk=32)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+    y_r, h_r = jssm.ssd_reference(*jx)
+    assert _err(y, y_r) < TOL["float32"] and _err(h, h_r) < TOL["float32"]
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_decode_step_matches_jax(G):
+    rng = np.random.default_rng(7)
+    B, H, P, N = 2, 3, 8, 16
+    h = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    x = rng.standard_normal((B, H, P)).astype(np.float32)
+    dt = _softplus(rng.standard_normal((B, H)))
+    A = -np.exp(rng.standard_normal(H)).astype(np.float32)
+    Bt, Ct = (rng.standard_normal((B, G, N)).astype(np.float32)
+              for _ in range(2))
+    D = rng.standard_normal(H).astype(np.float32)
+    args = (h, x, dt, A, Bt, Ct, D)
+    hj, yj = jssm.ssd_decode_step(*map(jnp.asarray, args))
+    ht, yt = tssm.ssd_decode_step(*map(torch.from_numpy, args))
+    assert _err(ht, hj) < 1e-5 and _err(yt, yj) < 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6),
+                                       ("bfloat16", 2e-2)])
+def test_causal_conv_and_step_match_jax(dtype, tol):
+    rng = np.random.default_rng(8)
+    B, S, H, P, K = 2, 9, 3, 4, 4
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    w = (rng.standard_normal((H, P, K)) / K).astype(np.float32)
+    b = rng.standard_normal((H, P)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jssm.causal_conv(jnp.asarray(x, jd), jnp.asarray(w, jd),
+                            jnp.asarray(b))
+    got = tssm.causal_conv(torch.from_numpy(x).to(td),
+                           torch.from_numpy(w).to(td), torch.from_numpy(b))
+    assert got.dtype == td and _err(got, want) < tol
+    # the step form, fed one position at a time, gives the same outputs
+    state = torch.zeros((B, K - 1, H, P), dtype=td)
+    jstate = jnp.zeros((B, K - 1, H, P), jd)
+    for t in range(S):
+        jstate, jy = jssm.causal_conv_step(jstate, jnp.asarray(x[:, t], jd),
+                                           jnp.asarray(w, jd),
+                                           jnp.asarray(b))
+        state, y = tssm.causal_conv_step(state, torch.from_numpy(x[:, t])
+                                         .to(td), torch.from_numpy(w).to(td),
+                                         torch.from_numpy(b))
+        assert _err(y, jy) < tol and _err(state, jstate) < tol
+        assert _err(y, got[:, t].float().numpy()) < tol
+
+
+def test_expand_groups_matches_jax():
+    t = np.arange(2 * 5 * 2 * 3, dtype=np.float32).reshape(2, 5, 2, 3)
+    for H in (2, 6):
+        want = np.asarray(jssm._expand_groups(jnp.asarray(t), H))
+        assert np.array_equal(tssm._expand_groups(torch.from_numpy(t), H)
+                              .numpy(), want)
+
+
+def test_wrapper_halves_the_chunk_and_refuses_bad_input():
+    jx, tx = _inputs(1, 48, 2, 4, 1, 8, "float32", seed=9)
+    # 48 % 32 != 0: the chunk halves to 16, as in the JAX kernel
+    y, h = ops.ssd(*tx, chunk=32)
+    y_j, h_j = jax_ssd(*jx, chunk=32, interpret=True)
+    assert _err(y, y_j) < TOL["float32"] and _err(h, h_j) < TOL["float32"]
+    assert ops.reference is tssm.ssd_reference
+    meta = [t.to("meta") for t in tx]
+    with pytest.raises(ValueError, match="device"):
+        ops.ssd(*meta)
+    with pytest.raises(ValueError):                  # dt of the wrong shape
+        ops.ssd(tx[0], tx[1][:, :-1], *tx[2:])
+    with pytest.raises(ValueError):                  # 2 heads over 3 groups
+        bad = torch.zeros((1, 48, 3, 8))
+        ops.ssd(tx[0], tx[1], tx[2], bad, bad, tx[5])
