@@ -4,10 +4,13 @@
     python3 chip_smoke.py          # from the root of the repository
 
 It builds the port's three CUDA kernels from the sources in the checkout
-(one nvcc each, all at once) and holds each against its plain torch
-version on edge cases: the fingerprint bit-exactly, flash attention and the
-SSD scan within the JAX kernel tests' tolerances. It checks the f32 models
-of each family on the card against the CPU, then runs the serving path
+(one nvcc each, all at once), logs each library's registers and spills as
+ptxas reports them (and fails if ptxas serialised the flash kernel's
+wgmma), and holds each kernel against its plain torch version on edge
+cases: the fingerprint bit-exactly, flash attention (both its f32 and its
+bf16 tensor-core kernel) and the SSD scan within the JAX kernel tests'
+tolerances. It checks the f32 models of each family on the card against
+the CPU, then runs the serving path
 
     save (full, fingerprinted) -> restore + serve -> incremental save
     -> sparse refresh -> serve
@@ -84,7 +87,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 def phase_build():
     """Build every kernel of the port at once (one nvcc per source)."""
-    from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.build import build_all, ptxas_report
     from repro_torch.kernels.fingerprint import ops as fp_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -98,11 +101,18 @@ def phase_build():
     ptxas = {}
     for name, path in paths.items():
         with open(path + ".ptxas.txt") as f:
-            ptxas[name] = [ln.strip() for ln in f
-                           if "registers" in ln or "spill" in ln]
+            ptxas[name] = ptxas_report(f.read())
+    flash = ptxas["flash_attention"]
+    check(not flash["wgmma_serialized"],
+          f"ptxas serialised the flash kernel's wgmma: "
+          f"{flash['wgmma_serialized']}")
+    plans = {d: fa_ops.tile_plan(d)["smem_bytes"] for d in fa_ops.HEAD_DIMS}
+    lib = fa_ops.load_library()
+    check(all(lib.fa_bf16_smem_bytes(d) == b for d, b in plans.items()),
+          "ops.tile_plan disagrees with the kernel's shared memory")
     log("build", seconds=secs, card=torch.cuda.get_device_name(0),
         cuda=torch.version.cuda, torch=torch.__version__,
-        built=sorted(paths), ptxas=ptxas)
+        built=sorted(paths), ptxas=ptxas, flash_bf16_smem_bytes=plans)
 
 
 def _device_tree(dev):
@@ -193,7 +203,15 @@ FA_EDGE_CASES = [
     (1, 4, 1, 128, 32, None, False, None),    # not causal
     (1, 4, 2, 160, 64, 48, False, 0.3),       # a window alone, explicit scale
     (1, 2, 1, 256, 64, 40, True, None),       # first KV tile wholly masked
-]                                             # for the late rows of a tile
+                                              # for the late rows of a tile
+    # ragged S and many KV tiles of 128 keys: the last query tile's block
+    # visits 10, 9 and 11 of them, wrapping the bf16 kernel's ring of 4
+    # (D 32, 64) or 3 (D 128) stages at least twice
+    (1, 4, 2, 1300, 64, 1100, True, None),    # a window and GQA
+    (2, 5, 1, 1100, 128, None, True, None),
+    (1, 4, 2, 1300, 32, None, False, 0.3),    # not causal, explicit scale
+    (1, 4, 2, 1000, 64, 300, True, None),     # a narrow band: 3-4 tiles
+]
 # B, S, H, P, G, N, chunk, |A| scale
 SSD_EDGE_CASES = [
     (2, 64, 3, 8, 1, 16, 16, 1.0),            # tests/test_kernels.py SSD_CASES
@@ -327,7 +345,7 @@ def ssd_bound(x, Bc, chunk: int) -> dict:
     return _bound(nbytes, ops, x.dtype)
 
 
-def time_flash(q, k, v, *, causal: bool, window, reps: int = 5) -> dict:
+def time_flash(q, k, v, *, causal: bool, window, reps: int = 20) -> dict:
     """The flash kernel against its plain version and SDPA, on (B, H, S, D)
     inputs."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,

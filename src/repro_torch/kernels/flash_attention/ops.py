@@ -3,7 +3,9 @@
 ``flash_attention`` is the entry point, with the JAX package's signature.
 For tensors on the CPU it runs the plain version (``ref.flash_attention_ref``);
 for tensors on a CUDA device it launches ``csrc/flash_attention.cu``, or
-raises. It never falls back from the kernel to the plain version.
+raises: bf16 inputs go to the tensor-core kernel (wgmma fed by TMA, tiles
+in ``tile_plan``), f32 inputs to the exact f32 one. It never falls back
+from a kernel to the plain version or from one kernel to the other.
 ``flash_attention.launches`` counts kernel launches, and nothing else.
 """
 from __future__ import annotations
@@ -24,6 +26,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None   # the loaded library, once per process
 
 
+def tile_plan(d: int) -> dict:
+    """The bf16 kernel's tiles at head dim ``d``, as ``csrc`` fixes them:
+    query rows and keys a block, ring stages, the swizzled row of one TMA
+    box, and the dynamic shared memory a block takes (Q, the ring of K and
+    V tiles, one 8-byte mbarrier per ring slot twice plus Q's, and 1024
+    bytes to align the base)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
+    q_rows = kv_rows = 128
+    stages = 3 if d == 128 else 4
+    row_bytes = 64 if d == 32 else 128
+    tiles = q_rows * d * 2 + stages * 2 * kv_rows * d * 2
+    return {"q_rows": q_rows, "kv_rows": kv_rows, "stages": stages,
+            "box_row_bytes": row_bytes, "consumer_rows": 64,
+            "smem_bytes": tiles + 8 * (2 * stages + 1) + 1024}
+
+
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library."""
     global _lib
@@ -35,6 +54,8 @@ def load_library() -> ctypes.CDLL:
         lib.fa_launch.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
+        lib.fa_bf16_smem_bytes.argtypes = [ctypes.c_int]
+        lib.fa_bf16_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -56,6 +77,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v lie on different devices")
 
 
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> None:
+    """Raise on what the CUDA kernels do not take: head dims, dtypes, and
+    for bf16 (TMA) a data pointer off a 16-byte boundary. Takes tensors
+    already made contiguous."""
+    D = q.shape[-1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {D}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("the kernel takes q, k, v all f32 or all bf16, not "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}'s data is not 16-byte aligned, "
+                                 "which the bf16 kernel's TMA loads need")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None, q_block: int = 512,
@@ -63,8 +102,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, S, D); k/v: (B, KVH, S, D) -> (B, Hq, S, D) in q's dtype.
 
     ``q_block`` and ``kv_block`` keep the JAX signature: the plain path
-    ignores them, and the kernel takes its own 64 x 64 tiles (any S, ragged
-    edges masked). The kernel takes f32 or bf16, D in {32, 64, 128}."""
+    ignores them, and the kernels take their own tiles (bf16: 128 x 128,
+    ``tile_plan``; f32: 64 x 64; any S, ragged edges masked). The kernels
+    take f32 or bf16, D in {32, 64, 128}."""
     del q_block, kv_block
     _check(q, k, v, window)
     if q.device.type == "cpu":
@@ -73,13 +113,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     B, Hq, S, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {D}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("the kernel takes q, k, v all f32 or all bf16, not "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    lib = load_library()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_kernel_inputs(q, k, v)
+    lib = load_library()
     out = torch.empty_like(q)
     scale = scale if scale is not None else D ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -7,8 +7,11 @@ row's first KV tile is wholly masked.
 
 Tolerances are the JAX kernel tests' own: 3e-5 in f32 (the two frameworks
 sum in other orders), 3e-2 in bf16 (one bf16 rounding of the output).
-The CUDA kernel itself runs only on a card: chip_smoke.py holds it against
-this plain path there.
+The CUDA kernels themselves run only on a card: chip_smoke.py holds them
+against this plain path there. Here an emulation of the bf16 kernel's
+rounding points (written below, not in the package) is held against the
+Pallas kernel, to show that the bf16 tolerance admits the design, and the
+wrapper's tile plan and input checks are tested.
 """
 import numpy as np
 import pytest
@@ -110,3 +113,114 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                             torch.zeros((1, 1, 9, 16)))
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(c, c[:, :1], c[:, :1], window=0)
+
+
+# ---------------------------------------------- the bf16 kernel's rounding
+# What csrc/flash_attention.cu's bf16 path computes, step by step, in f32
+# torch: 128-row query blocks; of each, only the 128-key tiles holding a key
+# some row may see, in order; scores q.k^T in f32, then scaled by
+# scale * log2(e), masked entries -1e30; m, l and acc in f32 with exp2;
+# p rounded to bf16 before p.v (v exact in bf16, products summed in f32),
+# l summed from the f32 p; out = acc / max(l, 1e-30) in bf16.
+KERNEL_ROWS = KERNEL_KEYS = 128
+LOG2E = 1.4426950408889634
+
+
+def _emulate_bf16_kernel(q, k, v, *, causal=True, window=None, scale=None):
+    B, Hq, S, D = q.shape
+    G = Hq // k.shape[1]
+    scale_log2 = (scale if scale is not None else D ** -0.5) * LOG2E
+    qf = q.float()
+    kf = torch.repeat_interleave(k, G, dim=1).float()
+    vf = torch.repeat_interleave(v, G, dim=1).float()
+    out = torch.empty_like(q)
+    for q0 in range(0, S, KERNEL_ROWS):
+        rows = torch.arange(q0, q0 + KERNEL_ROWS)
+        qb = torch.zeros((B, Hq, KERNEL_ROWS, D))
+        qb[:, :, :min(KERNEL_ROWS, S - q0)] = qf[:, :, q0:q0 + KERNEL_ROWS]
+        k_lo = max(0, q0 - window + 1) if window else 0
+        k_hi = min(S, q0 + KERNEL_ROWS) if causal else S
+        m = torch.full((B, Hq, KERNEL_ROWS), -1e30)
+        l = torch.zeros((B, Hq, KERNEL_ROWS))
+        acc = torch.zeros((B, Hq, KERNEL_ROWS, D))
+        for k0 in range(k_lo // KERNEL_KEYS * KERNEL_KEYS, k_hi,
+                        KERNEL_KEYS):
+            keys = torch.arange(k0, k0 + KERNEL_KEYS)
+            kb = torch.zeros((B, Hq, KERNEL_KEYS, D))
+            vb = torch.zeros((B, Hq, KERNEL_KEYS, D))
+            kb[:, :, :min(KERNEL_KEYS, S - k0)] = kf[:, :, k0:k0 + KERNEL_KEYS]
+            vb[:, :, :min(KERNEL_KEYS, S - k0)] = vf[:, :, k0:k0 + KERNEL_KEYS]
+            s = (qb @ kb.transpose(-1, -2)) * scale_log2
+            ok = keys[None, :] < S
+            if causal:
+                ok = ok & (rows[:, None] >= keys[None, :])
+            if window:
+                ok = ok & (rows[:, None] - keys[None, :] < window)
+            s = torch.where(ok, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + \
+                p.to(torch.bfloat16).float() @ vb
+            m = m_new
+        res = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, :, q0:q0 + KERNEL_ROWS] = res[:, :, :S - q0].to(q.dtype)
+    return out
+
+
+EMULATION_CASES = {
+    **{f"fa_{i}": (*c, True, None) for i, c in enumerate(FA_CASES)},
+    **EXTRA_CASES,
+    # a row block whose first visited 128-key tile is wholly masked
+    "first_tile_masked_128": (1, 2, 1, 256, 64, 40, 128, 128, True, None),
+    # 9 tiles of 128 keys, a window: the last row block visits all 9
+    "nine_tiles_window": (1, 4, 2, 1152, 64, 1000, 128, 128, True, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EMULATION_CASES))
+def test_bf16_kernel_rounding_is_inside_the_tolerance(case):
+    B, Hq, KVH, S, D, win, qb, kb, causal, scale = EMULATION_CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "bfloat16")
+    kw = dict(causal=causal, window=win, scale=scale)
+    want = jax_flash(jq, jk, jv, q_block=qb, kv_block=kb, interpret=True,
+                     **kw)
+    got = _emulate_bf16_kernel(tq, tk, tv, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    assert _err(got, want) < TOL["bfloat16"]
+    # and the emulation is of the same function as the plain version
+    assert _err(got, flash_attention_ref(tq, tk, tv, **kw).float().numpy()) \
+        < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("d", ops.HEAD_DIMS)
+def test_tile_plan_fits_a_block(d):
+    plan = ops.tile_plan(d)
+    assert plan["smem_bytes"] <= 232_448   # the most a block may use
+    for key in ("q_rows", "kv_rows", "consumer_rows"):
+        assert plan[key] % 64 == 0             # wgmma tiles are 64 rows
+    assert plan["q_rows"] == 2 * plan["consumer_rows"]   # two consumers
+    assert plan["stages"] >= 2                 # a ring: load j+1 during j
+    assert plan["box_row_bytes"] in (64, 128)  # a TMA / wgmma swizzle
+    tiles = plan["q_rows"] * d * 2 + plan["stages"] * 2 * plan["kv_rows"] \
+        * d * 2
+    assert tiles < plan["smem_bytes"] <= tiles + 1024 + 8 * 64
+    with pytest.raises(ValueError, match="head dims"):
+        ops.tile_plan(96)
+
+
+def test_kernel_input_checks():
+    def qkv(dtype, d=16, offset=0):
+        n = 2 * 8 * d
+        base = torch.zeros(n + offset, dtype=dtype)
+        return base[offset:].view(1, 2, 8, d), torch.zeros(
+            (1, 1, 8, d), dtype=dtype), torch.zeros((1, 1, 8, d), dtype=dtype)
+    ops.check_kernel_inputs(*qkv(torch.bfloat16, 64))
+    ops.check_kernel_inputs(*qkv(torch.float32, 32, offset=1))  # f32: no TMA
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.check_kernel_inputs(*qkv(torch.bfloat16, 64, offset=1))
+    with pytest.raises(ValueError, match="head dims"):
+        ops.check_kernel_inputs(*qkv(torch.bfloat16, 16))
+    with pytest.raises(ValueError, match="f32 or all bf16"):
+        ops.check_kernel_inputs(*qkv(torch.float16, 64))
