@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-It builds the port's three CUDA kernels from the sources in the checkout
-(one nvcc each, all at once), logs each library's registers and spills as
-ptxas reports them (and fails if ptxas serialised the flash kernel's
-wgmma), and holds each kernel against its plain torch version on edge
-cases: the fingerprint bit-exactly, flash attention (both its f32 and its
+It builds the port's three CUDA libraries from the sources in the
+checkout (one nvcc each, all at once), logs each library's registers and
+spills as ptxas reports them (and fails if ptxas serialised a kernel's
+wgmma, or if one of the SSD scan's kernels spills), and holds each kernel
+against its plain torch version on edge cases: the fingerprint bit-exactly, flash attention (both its f32 and its
 bf16 tensor-core kernel) and the SSD scan within the JAX kernel tests'
 tolerances. It checks the f32 models of each family on the card against
 the CPU, then runs the serving path
@@ -22,8 +22,10 @@ the flash attention and SSD scan entry points on the tensors the model
 computes and holds them against the model's own results (the served
 models, as in the JAX package, run the plain attention and scan), and
 times each kernel beside its bound, its plain version and, for attention,
-``scaled_dot_product_attention``; last at yi-6b's attention and
-mamba2-130m's scan shapes.
+``scaled_dot_product_attention``; last at yi-6b's attention shape (bf16
+and f32) and mamba2-130m's scan shape. The SSD scan runs as three CUDA
+kernels a call (chunk state, state passing, chunk scan); its launches
+count calls, and each of the three CUDA kernels is counted as well.
 
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
@@ -85,6 +87,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` (launches on the current stream, no host
+    synchronisation) from a CUDA graph of one call, replayed ``reps``
+    times: what the card spends, without the host's time between launches.
+    ``fn`` runs once before the capture (builds, allocations)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
 def phase_build():
     """Build every kernel of the port at once (one nvcc per source)."""
     from repro_torch.kernels.build import build_all, ptxas_report
@@ -102,17 +122,38 @@ def phase_build():
     for name, path in paths.items():
         with open(path + ".ptxas.txt") as f:
             ptxas[name] = ptxas_report(f.read())
-    flash = ptxas["flash_attention"]
-    check(not flash["wgmma_serialized"],
-          f"ptxas serialised the flash kernel's wgmma: "
-          f"{flash['wgmma_serialized']}")
+    for name in ("flash_attention", "ssd_scan"):
+        check(not ptxas[name]["wgmma_serialized"],
+              f"ptxas serialised the {name} kernel's wgmma: "
+              f"{ptxas[name]['wgmma_serialized']}")
+    scan = ptxas["ssd_scan"]["kernels"]
+    check(len(scan) == 5 and all(
+        k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0
+        for k in scan), f"the SSD kernels spill (or are missing): {scan}")
     plans = {d: fa_ops.tile_plan(d)["smem_bytes"] for d in fa_ops.HEAD_DIMS}
     lib = fa_ops.load_library()
     check(all(lib.fa_bf16_smem_bytes(d) == b for d, b in plans.items()),
           "ops.tile_plan disagrees with the kernel's shared memory")
+    ssd_lib = ssd_ops.load_library()
+    ssd_plans = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for q, n, p in ((128, 16, 64), (128, 128, 64), (64, 128, 64),
+                        (7, 8, 24), (128, 32, 72)):
+            for ph, groups in ((1, 1), (3, 1), (3, 2), (3, 4)):
+                if dtype == torch.float32 and groups > 1:
+                    continue
+                want = ssd_ops.smem_bytes(ph, dtype, q, n, p, groups)
+                check(ssd_lib.ssd_smem_bytes(ph, int(dtype == torch.bfloat16),
+                                             q, n, p, groups) == want,
+                      f"ops.smem_bytes disagrees with the SSD kernel's: "
+                      f"phase {ph}, {dtype}, Q {q}, N {n}, P {p}, "
+                      f"{groups} groups")
+                ssd_plans[f"{str(dtype)[6:]} ph{ph} Q{q} N{n} P{p} "
+                          f"g{groups}"] = want
     log("build", seconds=secs, card=torch.cuda.get_device_name(0),
         cuda=torch.version.cuda, torch=torch.__version__,
-        built=sorted(paths), ptxas=ptxas, flash_bf16_smem_bytes=plans)
+        built=sorted(paths), ptxas=ptxas, flash_bf16_smem_bytes=plans,
+        ssd_smem_bytes=ssd_plans)
 
 
 def _device_tree(dev):
@@ -220,6 +261,16 @@ SSD_EDGE_CASES = [
     (1, 192, 2, 64, 1, 128, 192, 0.1),        # N 128; kernel chunks 128 + 64
     (1, 256, 4, 24, 2, 16, 128, 1.0),         # P 24: a partial P tile
     (2, 256, 3, 64, 1, 16, 128, 40.0),        # exp above the diagonal is inf
+    (2, 4096, 4, 64, 2, 32, 128, 1.0),        # 32 chunks passed state, G 2
+    (1, 200, 3, 20, 1, 10, 128, 1.0),         # P, N not multiples of 8 (nor
+                                              # N of 4): bf16 plain loads and
+                                              # stores, a short last chunk
+]
+# cases run again with x, Bc and Cc each a contiguous view one element into
+# its storage: no longer 16-byte aligned, so the bf16 kernels take their
+# plain loads and stores at shapes that would allow 16-byte ones
+SSD_UNALIGNED_CASES = [
+    (2, 256, 4, 64, 2, 16, 128, 1.0),
 ]
 FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -266,16 +317,33 @@ def phase_flash_edges(dev) -> None:
         max_abs_err=worst, tol={"float32": 3e-5, "bfloat16": 3e-2})
 
 
+def _one_element_in(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element into its
+    storage."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_ssd_edges(dev) -> None:
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.models.ssm import ssd_chunked, ssd_reference
     g = torch.Generator(device=dev).manual_seed(22)
     worst = {}
-    for case in SSD_EDGE_CASES:
+    cases = [(c, False) for c in SSD_EDGE_CASES] + \
+        [(c, True) for c in SSD_UNALIGNED_CASES]
+    for case, unaligned in cases:
         B, S, H, P, G, N, chunk, a_scale = case
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_inputs_seeded(g, B, S, H, P, G, N, a_scale, dtype,
                                       dev)
+            if unaligned:
+                x, dt, A, Bc, Cc, D = args
+                x, Bc, Cc = (_one_element_in(t) for t in (x, Bc, Cc))
+                check(all(t.is_contiguous() and t.data_ptr() % 16
+                          for t in (x, Bc, Cc)), "unaligned views")
+                args = x, dt, A, Bc, Cc, D
             y, h = ssd(*args, chunk=chunk)
             torch.cuda.synchronize()
             y_p, h_p = ssd_chunked(*args, chunk=chunk)
@@ -296,7 +364,7 @@ def phase_ssd_edges(dev) -> None:
             w["rel_vs_plain"] = max(w["rel_vs_plain"], *errs)
             w["abs_vs_reference"] = max(w["abs_vs_reference"],
                                         _max_err(y, y_r), _max_err(h, h_r))
-    log("kernel_edges_ssd", cases=len(SSD_EDGE_CASES), dtypes=2,
+    log("kernel_edges_ssd", cases=len(cases), dtypes=2,
         max_err=worst, tol={"float32": 2e-5, "bfloat16": 5e-2})
 
 
@@ -377,20 +445,33 @@ def time_flash(q, k, v, *, causal: bool, window, reps: int = 20) -> dict:
     return res
 
 
-def time_ssd(x, dt, A, Bc, Cc, D, *, chunk: int, reps: int = 5) -> dict:
-    """The SSD kernel against its plain version (no single PyTorch call
-    computes it, so no library time)."""
-    from repro_torch.kernels.ssd_scan.ops import ssd
+def time_ssd(x, dt, A, Bc, Cc, D, *, chunk: int, reps: int = 20) -> dict:
+    """The SSD kernel (one call: its three CUDA kernels) against its plain
+    version (no single PyTorch call computes it, so no library time).
+    ``ms`` is the time between events around eager calls, as for the other
+    kernels: it holds the host's time between the three launches where
+    that exceeds the card's. Diagnostics beside it: ``graph_ms``, the
+    device time of one call from a CUDA graph of it, replayed, and
+    ``phase_ms``, each phase's device time alone, the same way."""
+    from repro_torch.kernels.ssd_scan.ops import phase_launches, ssd, \
+        tile_plan
     from repro_torch.models.ssm import ssd_chunked
     y, h = ssd(x, dt, A, Bc, Cc, D, chunk=chunk)
     y_p, h_p = ssd_chunked(x, dt, A, Bc, Cc, D, chunk=chunk)
+    B, S, H, P = x.shape
     res = {"shape": list(x.shape), "groups": Bc.shape[2],
            "state": Bc.shape[3], "chunk": chunk,
            "dtype": str(x.dtype).split(".")[-1],
+           "plan": tile_plan(B, S, H, P, Bc.shape[2], Bc.shape[3], x.dtype,
+                             chunk),
            "max_abs_err": max(_max_err(y, y_p), _max_err(h, h_p))}
     check(res["max_abs_err"] < SSD_TOL[x.dtype],
           f"ssd at {res['shape']}: {res['max_abs_err']}")
-    res["ms"] = cuda_ms(lambda: ssd(x, dt, A, Bc, Cc, D, chunk=chunk), reps)
+    call = lambda: ssd(x, dt, A, Bc, Cc, D, chunk=chunk)  # noqa: E731
+    res["ms"] = cuda_ms(call, reps)
+    res["graph_ms"] = graph_ms(call, reps)
+    runs, _, _ = phase_launches(x, dt, A, Bc, Cc, D, chunk)
+    res["phase_ms"] = {name: graph_ms(run, reps) for name, run in runs}
     res["plain_ms"] = cuda_ms(
         lambda: ssd_chunked(x, dt, A, Bc, Cc, D, chunk=chunk), 2)
     res["library_ms"] = None
@@ -400,18 +481,25 @@ def time_ssd(x, dt, A, Bc, Cc, D, *, chunk: int, reps: int = 5) -> dict:
 
 def phase_seeded_shapes(dev) -> dict:
     """The kernels at the widths of the repo's other models: yi-6b's
-    attention (causal, no window) and mamba2-130m's scan (N 128)."""
+    attention (causal, no window) in bf16 and in f32 (the f32 kernel, SDPA
+    in f32 beside it; TF32 is off), and mamba2-130m's scan (N 128)."""
     g = torch.Generator(device=dev).manual_seed(5)
-    q, k, v = _flash_inputs(g, 1, 32, 4, 4096, 128, torch.bfloat16, dev)
-    flash = time_flash(q, k, v, causal=True, window=None)
-    flash["model"] = "yi-6b"
-    del q, k, v
+    flash = {}
+    for dtype, reps in ((torch.bfloat16, 20), (torch.float32, 5)):
+        q, k, v = _flash_inputs(g, 1, 32, 4, 4096, 128, dtype, dev)
+        flash[dtype] = time_flash(q, k, v, causal=True, window=None,
+                                  reps=reps)
+        flash[dtype]["model"] = "yi-6b"
+        del q, k, v
+        torch.cuda.empty_cache()
     args = _ssd_inputs_seeded(g, 2, 4096, 24, 64, 1, 128, 1.0,
                               torch.bfloat16, dev)
     scan = time_ssd(*args, chunk=128)
     scan["model"] = "mamba2-130m"
-    log("kernel_seeded", flash=flash, ssd=scan)
-    return {"flash": flash, "ssd": scan}
+    log("kernel_seeded", flash=flash[torch.bfloat16],
+        flash_f32=flash[torch.float32], ssd=scan)
+    return {"flash": flash[torch.bfloat16], "flash_f32": flash[torch.float32],
+            "ssd": scan}
 
 
 def phase_reference_check(dev) -> None:
@@ -475,6 +563,7 @@ def phase_kernel_path(cfg, params, prompts, dev) -> dict:
     t0 = time.perf_counter()
     flash_attention.launches = 0
     ssd.launches = 0
+    ssd.kernel_launches = dict.fromkeys(ssd.kernel_launches, 0)
     with torch.inference_mode():
         x = embed_tokens(cfg, params, toks)
         for i in range(cfg.n_layers):
@@ -503,6 +592,7 @@ def phase_kernel_path(cfg, params, prompts, dev) -> dict:
     torch.cuda.synchronize()
     launches = {"flash_attention": flash_attention.launches,
                 "ssd_scan": ssd.launches}
+    cuda_kernels = dict(ssd.kernel_launches)
     dtype = params["embed"].dtype
     check(err["flash_vs_model"] < FA_TOL[dtype],
           f"flash kernel vs the model's attention: {err['flash_vs_model']}")
@@ -511,10 +601,14 @@ def phase_kernel_path(cfg, params, prompts, dev) -> dict:
     check(launches == {"flash_attention": cfg.n_layers,
                        "ssd_scan": cfg.n_layers},
           f"kernel launches on the path: {launches}")
+    check(cuda_kernels == dict.fromkeys(cuda_kernels, cfg.n_layers),
+          f"the SSD scan's CUDA kernels on the path: {cuda_kernels}")
     log("kernel_path", seconds=time.perf_counter() - t0, layers=cfg.n_layers,
-        batch=B, prompt_len=S, launches=launches, max_abs_err=err,
+        batch=B, prompt_len=S, launches=launches,
+        ssd_cuda_kernels=cuda_kernels, max_abs_err=err,
         tol={"flash": FA_TOL[dtype], "ssd": SSD_TOL[dtype]})
-    return {"launches": launches, "err": err, "layer0": layer0}
+    return {"launches": launches, "ssd_cuda_kernels": cuda_kernels,
+            "err": err, "layer0": layer0}
 
 
 def phase_kernel_full(layer0, cfg) -> dict:
@@ -705,17 +799,17 @@ def run_model(arch: str, dev, edit: str, batch: int, prompt_len: int,
     return out
 
 
-def _row(name, source, replaces, launches, res, other=None) -> dict:
+def _row(name, source, replaces, launches, res, others=()) -> dict:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            **{k: res[k] for k in keys}}
-    row.update({k: res[k] for k in ("shape", "model", "dtype", "library")
-                if k in res})
-    if other is not None:
-        row["other_shapes"] = [{k: other[k] for k in keys + (
-            "shape", "model", "bytes_bound_ms", "ops_bound_ms") if k in other}]
+    extra = ("shape", "model", "dtype", "library", "graph_ms", "phase_ms")
+    row.update({k: res[k] for k in extra if k in res})
+    if others:
+        row["other_shapes"] = [{k: o[k] for k in keys + extra + (
+            "bytes_bound_ms", "ops_bound_ms") if k in o} for o in others]
     return row
 
 
@@ -749,6 +843,7 @@ def main() -> int:
     path = phase_kernel_path(cfg, hy["engine"].params, hy["prompts"], dev)
     full = phase_kernel_full(path["layer0"], cfg)
     fp_hybrid_launches, launches = hy["launches"], path["launches"]
+    ssd_cuda_kernels = path["ssd_cuda_kernels"]
     del hy, path
     torch.cuda.empty_cache()
     seeded = phase_seeded_shapes(dev)
@@ -760,16 +855,19 @@ def main() -> int:
                                        model="yi-6b", library_ms=None))
     fp_row.update(check="bit-exact", tree_bytes=fp["tree_bytes"],
                   launches_hybrid_path=fp_hybrid_launches)
+    ssd_row = _row("ssd_scan",
+                   "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                   "src/repro/kernels/ssd_scan/kernel.py:25",
+                   launches["ssd_scan"], full["ssd"], (seeded["ssd"],))
+    ssd_row["cuda_kernel_launches"] = ssd_cuda_kernels
     summary = {"kernels": [
         fp_row,
         _row("flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:33",
              launches["flash_attention"], full["flash"],
-             seeded["flash"]),
-        _row("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan/kernel.py:25",
-             launches["ssd_scan"], full["ssd"], seeded["ssd"]),
+             (seeded["flash"], seeded["flash_f32"])),
+        ssd_row,
     ]}
     card = subprocess.run(CARD_SHELL, capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()

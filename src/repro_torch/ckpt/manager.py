@@ -33,8 +33,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import (BuildReport, Instruction, LayerStore, StructureChangeError,
-                    diff_image, fingerprint_tree_packed, inject_image_multi)
+from ..core import (BuildReport, Instruction, LayerStore, diff_image,
+                    fingerprint_tree_packed, inject_image_multi)
 from ..device import resolve_device
 
 
@@ -209,8 +209,11 @@ class CheckpointManager:
                 self.tag_of(step), diffs,
                 providers={k: (lambda p=v: p) for k, v in payloads.items()},
                 durability=self.policy.durability)
-        except StructureChangeError:
-            # structure changed ("compiled" case) -> rebuild fall-back
+        except Exception:  # noqa: BLE001
+            # structure changed ("compiled" case), or any other failure of
+            # the injection -> rebuild fall-back, as the reference does (it
+            # re-raises its simulated crash, CrashInjected, first; the port
+            # has no fault injection yet)
             report = self._save_full(step, payloads,
                                      fps=new_fps if new_fps else None)
         report.bytes_d2h += stats.get("bytes_d2h", 0)

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for the bf16 flash attention kernel:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma instructions themselves, as inline PTX (no CUTLASS, no PyTorch
-// headers, so the library builds in seconds).
+// Hopper (sm_90a) building blocks for the port's bf16 kernels: mbarriers,
+// TMA tile loads, wgmma shared-memory descriptors and the wgmma
+// instructions themselves (flash attention), cp.async, ldmatrix and the
+// warp-level mma.sync (the SSD scan), as inline PTX (no CUTLASS, no
+// PyTorch headers, so a library builds in seconds).
 #pragma once
 
 #include <stdint.h>
@@ -253,6 +254,65 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// ------------------------------------------------------------ cp.async
+// 16 bytes global -> shared (both 16-byte aligned) without the registers;
+// the bytes past src_bytes (0 or 16) are written as zero
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, zero past src_bytes (0 or 4)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// wait until this thread's cp.async copies have landed (a barrier then
+// shows them to the others)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ ldmatrix
+// four 8 x 8 b16 matrices from shared memory, transposed: lanes 8 m ..
+// 8 m + 7 give the addresses of matrix m's rows (16 bytes each, 16-byte
+// aligned); a thread receives in d[m] matrix m's elements (row 2 (lane %
+// 4), column lane / 4) and (row 2 (lane % 4) + 1, same column), the first
+// in the low half: an mma B fragment from a row-major k x n tile, or an A
+// fragment from a row-major k x m one
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(smem_addr(row)));
+}
+
+// ----------------------------------------------------------- mma.sync
+// D[16 x 8] += A[16 x 16] . B[16 x 8], bf16 x bf16 -> f32, one warp. With
+// g = lane / 4 and t = lane % 4, a thread holds A's rows g and g + 8 at
+// columns 2t + {0, 1} and 2t + 8 + {0, 1}: a[0] = (g, 2t..), a[1] = (g + 8,
+// 2t..), a[2] = (g, 2t + 8..), a[3] = (g + 8, 2t + 8..), each register a
+// bf16 pair with the lower column in its low half; B's column g at rows
+// 2t + {0, 1} (b0) and 2t + 8 + {0, 1} (b1); D's rows g (d[0], d[1]) and
+// g + 8 (d[2], d[3]) at columns 2t + {0, 1}.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace hopper

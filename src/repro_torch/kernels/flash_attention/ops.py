@@ -60,10 +60,11 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int]) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("q: (B, Hq, S, D); k and v: (B, KVH, S, D)")
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            v.shape[:3] != k.shape[:3]:
+        raise ValueError("q: (B, Hq, S, D); k: (B, KVH, S, D); "
+                         "v: (B, KVH, S, Dv)")
     B, Hq, S, D = q.shape
     if k.shape[0] != B or k.shape[2] != S or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
@@ -71,20 +72,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Hq % k.shape[1]:
         raise ValueError(f"{Hq} query heads do not group over "
                          f"{k.shape[1]} KV heads")
-    if window is not None and window < 1:
-        raise ValueError(f"window {window} masks every key")
     if len({q.device, k.device, v.device}) > 1:
         raise ValueError("q, k and v lie on different devices")
 
 
-def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> None:
-    """Raise on what the CUDA kernels do not take: head dims, dtypes, and
-    for bf16 (TMA) a data pointer off a 16-byte boundary. Takes tensors
-    already made contiguous."""
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: Optional[int] = None) -> None:
+    """Raise on what the CUDA kernels do not take: a V head dim unlike
+    q's and k's, head dims outside ``HEAD_DIMS``, a window below 1 (the
+    plain version then averages every key uniformly, as the reference
+    does; the kernels read a window <= 0 as none), dtypes, and for bf16
+    (TMA) a data pointer off a 16-byte boundary. Takes tensors already
+    made contiguous."""
     D = q.shape[-1]
+    if v.shape[-1] != D:
+        raise ValueError(f"the kernel takes v's head dim equal to q's and "
+                         f"k's: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {D}")
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {D} "
+                         f"(q {tuple(q.shape)})")
+    if window is not None and window < 1:
+        raise ValueError(f"the kernel takes a window of at least 1, not "
+                         f"{window}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("the kernel takes q, k, v all f32 or all bf16, not "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -99,14 +109,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None, q_block: int = 512,
                     kv_block: int = 512) -> torch.Tensor:
-    """q: (B, Hq, S, D); k/v: (B, KVH, S, D) -> (B, Hq, S, D) in q's dtype.
+    """q: (B, Hq, S, D); k: (B, KVH, S, D); v: (B, KVH, S, Dv) -> (B, Hq,
+    S, Dv) in q's dtype.
 
     ``q_block`` and ``kv_block`` keep the JAX signature: the plain path
     ignores them, and the kernels take their own tiles (bf16: 128 x 128,
     ``tile_plan``; f32: 64 x 64; any S, ragged edges masked). The kernels
-    take f32 or bf16, D in {32, 64, 128}."""
+    take f32 or bf16, Dv = D in {32, 64, 128}, and a window of at least 1
+    (``check_kernel_inputs``)."""
     del q_block, kv_block
-    _check(q, k, v, window)
+    _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
@@ -114,7 +126,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"no flash attention kernel for device {q.device}")
     B, Hq, S, D = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    check_kernel_inputs(q, k, v)
+    check_kernel_inputs(q, k, v, window)
     lib = load_library()
     out = torch.empty_like(q)
     scale = scale if scale is not None else D ** -0.5

@@ -14,7 +14,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         window: Optional[int] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Hq, S, D); k/v: (B, KVH, S, D) -> (B, Hq, S, D)."""
+    """q: (B, Hq, S, D); k: (B, KVH, S, D); v: (B, KVH, S, Dv) -> (B, Hq,
+    S, Dv). A window below 1 masks every key: each row then averages all
+    values uniformly (every score is -1e30), as in the reference."""
     B, Hq, S, D = q.shape
     KVH = k.shape[1]
     G = Hq // KVH

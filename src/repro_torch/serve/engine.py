@@ -168,8 +168,18 @@ class Engine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, steps: int,
+                 temperature: float = 0.0, seed: int = 0,
                  stop_token: Optional[int] = None) -> GenerationResult:
-        """Greedy decode. prompts: (B, S) int32, all of one length."""
+        """Greedy decode. prompts: (B, S) int32, all of one length. The
+        arguments are the reference's, in its order; ``temperature > 0``
+        raises ``NotImplementedError``, since the reference's sampled
+        tokens (``jax.random.categorical`` from ``seed``) cannot be
+        reproduced in torch."""
+        if temperature > 0.0:
+            raise NotImplementedError(
+                f"temperature {temperature}: only greedy decoding "
+                "(temperature 0) is ported")
+        del seed                        # only sampling would read it
         B, S = prompts.shape
         if S + steps > self.max_len and not self.cfg.window:
             raise ValueError("prompt + steps exceeds the cache")

@@ -66,6 +66,26 @@ def test_stop_token_ends_generation():
     assert got.shape[1] <= 3
 
 
+def test_generate_binds_the_references_arguments_by_position():
+    """generate(prompts, steps, temperature, seed, stop_token): the
+    reference's order, so a call written for it binds the same way."""
+    cfg, tcfg, jp, tp, prompts, steps, max_len = _setup("dense")
+    eng = Engine(tcfg, tp, max_len=max_len, device="cpu")
+    stop = int(eng.generate(prompts[:1], steps).tokens[0, 3])
+    want = JaxEngine(cfg, jp, max_len=max_len).generate(
+        prompts[:1], steps, 0.0, 7, stop).tokens
+    got = eng.generate(prompts[:1], steps, 0.0, 7, stop).tokens
+    np.testing.assert_array_equal(got, want)
+    assert got.shape[1] <= 4
+    # a temperature in third place is a temperature, not a stop token
+    np.testing.assert_array_equal(
+        eng.generate(prompts, steps, 0.0).tokens,
+        JaxEngine(cfg, jp, max_len=max_len).generate(prompts, steps,
+                                                     0.0).tokens)
+    with pytest.raises(NotImplementedError, match="temperature"):
+        eng.generate(prompts, steps, 0.7, 1)
+
+
 def _leaves(tree, prefix=""):
     for k in sorted(tree):
         if isinstance(tree[k], dict):

@@ -111,8 +111,54 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):                  # lengths differ
         ops.flash_attention(c, torch.zeros((1, 1, 9, 16)),
                             torch.zeros((1, 1, 9, 16)))
+    with pytest.raises(ValueError):                  # v's length differs
+        ops.flash_attention(c, c[:, :1], torch.zeros((1, 1, 9, 16)))
+    # a window below 1 is the reference's uniform average on the plain
+    # path; the kernels, which read it as no window, refuse it
+    ops.flash_attention(c, c[:, :1], c[:, :1], window=0)
     with pytest.raises(ValueError, match="window"):
-        ops.flash_attention(c, c[:, :1], c[:, :1], window=0)
+        ops.check_kernel_inputs(*(torch.zeros((1, 2, 8, 64))
+                                  for _ in range(3)), window=0)
+
+
+# (B, Hq, KVH, S, D, Dv): minicpm3-4b's MLA shape (q and k at 96, v at 64)
+DV_CASES = [(1, 2, 1, 64, 96, 64), (2, 4, 2, 40, 32, 16)]
+
+
+@pytest.mark.parametrize("B,Hq,KVH,S,D,Dv", DV_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v_head_dim_unlike_k_matches_jax_kernel(B, Hq, KVH, S, D, Dv, dtype):
+    """The reference takes Dv = v.shape[-1] and returns (B, Hq, S, Dv)."""
+    rng = np.random.default_rng(4)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Hq, S, D), (B, KVH, S, D), (B, KVH, S, Dv))]
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrs)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in arrs)
+    for kw in (dict(), dict(window=24), dict(causal=False, scale=0.2)):
+        want = jax_flash(jq, jk, jv, q_block=32, kv_block=32,
+                         interpret=True, **kw)
+        got = ops.flash_attention(tq, tk, tv, **kw)
+        assert got.shape == (B, Hq, S, Dv) == want.shape
+        assert _err(got, want) < TOL[dtype]
+        assert _err(got, jax_reference(jq, jk, jv, **kw)) < TOL[dtype]
+    with pytest.raises(ValueError, match=rf"v \({B}, {KVH}, {S}, {Dv}\)"):
+        ops.check_kernel_inputs(tq, tk, tv)
+
+
+@pytest.mark.parametrize("window", [0, -3])
+def test_window_below_one_matches_jax(window):
+    """Every key is masked: each row averages all values uniformly, in the
+    Pallas kernel, the JAX reference and the port's plain path alike."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, 4, 2, 64, 32, "float32", seed=5)
+    got = ops.flash_attention(tq, tk, tv, window=window)
+    want = jax_flash(jq, jk, jv, q_block=32, kv_block=32, interpret=True,
+                     window=window)
+    assert _err(got, want) < TOL["float32"]
+    assert _err(got, jax_reference(jq, jk, jv, window=window)) \
+        < TOL["float32"]
+    uniform = torch.repeat_interleave(tv, 2, dim=1).mean(dim=2, keepdim=True)
+    assert _err(got, uniform.expand_as(got).numpy()) < TOL["float32"]
 
 
 # ---------------------------------------------- the bf16 kernel's rounding

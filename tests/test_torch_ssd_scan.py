@@ -7,7 +7,10 @@ decay steep enough that exp above the chunk's diagonal overflows.
 
 Tolerances are the JAX kernel tests' own: 2e-5 in f32 (sums in other
 orders), 5e-2 in bf16 (one bf16 rounding of y). The CUDA kernel itself runs
-only on a card: chip_smoke.py holds it against this plain path there.
+only on a card: chip_smoke.py holds it against this plain path there. Here
+an emulation of its three phases and rounding points (written below, not in
+the package) is held against the Pallas kernel, to show that the tolerances
+admit the design, and the wrapper's tile plan is tested.
 """
 import numpy as np
 import pytest
@@ -70,9 +73,10 @@ def test_ssd_matches_jax_kernel_and_reference(B, S, H, P, G, N, chunk,
     jx, tx = _inputs(B, S, H, P, G, N, dtype)
     y_k, h_k = jax_ssd(*jx, chunk=chunk, interpret=True)
     y_r, h_r = jssm.ssd_reference(*jx)
-    n0 = ops.ssd.launches
+    n0, k0 = ops.ssd.launches, dict(ops.ssd.kernel_launches)
     y, h = ops.ssd(*tx, chunk=chunk)
     assert ops.ssd.launches == n0                  # CPU: the plain version
+    assert ops.ssd.kernel_launches == k0
     assert y.dtype == tx[0].dtype and h.dtype == torch.float32
     assert h.shape == (B, H, P, N)
     for got, want in ((y, y_k), (h, h_k), (y, y_r), (h, h_r)):
@@ -173,3 +177,162 @@ def test_wrapper_halves_the_chunk_and_refuses_bad_input():
     with pytest.raises(ValueError):                  # 2 heads over 3 groups
         bad = torch.zeros((1, 48, 3, 8))
         ops.ssd(tx[0], tx[1], tx[2], bad, bad, tx[5])
+
+
+# ------------------------------------------------ the kernel's arithmetic
+# What csrc/ssd_scan.cu computes, phase by phase, in f32 torch, at the
+# chunk q that ops.tile_plan gives (the sequence zero-padded to whole
+# chunks, as the kernel reads missing steps as zero):
+#   1. chunk state: L = cumsum(dt A) in the chunk, w = exp(L_last - L) dt,
+#      s = x^T (B w) per chunk and head, and the decay exp(L_last);
+#   2. state passing: h_in of chunk c = the carried h; h <- decay h + s;
+#   3. chunk scan: C.B^T once per group; scores = C.B^T exp(L_i - L_j) dt_j
+#      selected for i >= j; y = scores.x + exp(L) (C . h_in^T) + D x.
+# bf16: the scores enter scores.x and h_in enters C . h_in^T as three bf16
+# terms, hi + mid + lo (which hold an f32's 24 bits), so the one rounding
+# point is y's own, to bf16.
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split3(t):
+    hi = _bf16(t)
+    mid = _bf16(t - hi)
+    return hi + mid + _bf16(t - hi - mid)
+
+
+def _emulate_kernel(x, dt, A, Bc, Cc, D, chunk, round_y=True):
+    B, S, H, P = x.shape
+    G, N = Bc.shape[2], Bc.shape[3]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    q = ops.tile_plan(B, S, H, P, G, N, x.dtype, chunk)["chunk"]
+    nc = -(-S // q)
+    rep = H // G
+    bf16 = x.dtype == torch.bfloat16
+
+    def chunks(t):
+        pad = t.new_zeros((B, nc * q - S, *t.shape[2:]))
+        return torch.cat([t.float(), pad.float()], 1).reshape(
+            B, nc, q, *t.shape[2:])
+    xs, dts, Bs, Cs = chunks(x), chunks(dt), chunks(Bc), chunks(Cc)
+    Bh = Bs.repeat_interleave(rep, 3)                   # (B, nc, q, H, N)
+    Ch = Cs.repeat_interleave(rep, 3)
+    L = torch.cumsum(dts * A.float(), dim=2)            # (B, nc, q, H)
+    # 1. chunk state
+    w = torch.exp(L[:, :, -1:] - L) * dts
+    own = torch.einsum("bcjhp,bcjhn->bchpn", xs, Bh * w[..., None])
+    decay = torch.exp(L[:, :, -1])                      # (B, nc, H)
+    # 2. state passing
+    h = torch.zeros((B, H, P, N))
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, c, :, None, None] * h + own[:, c]
+    h_in = torch.stack(h_in, 1)                         # (B, nc, H, P, N)
+    # 3. chunk scan
+    cb = torch.einsum("bcign,bcjgn->bcgij", Cs, Bs).repeat_interleave(rep, 2)
+    Lh = L.permute(0, 1, 3, 2)                          # (B, nc, H, q)
+    ii = torch.arange(q)
+    below = ii[:, None] >= ii[None, :]
+    scores = cb * torch.where(below, torch.exp(Lh[..., :, None]
+                                               - Lh[..., None, :]),
+                              torch.zeros(())) \
+        * dts.permute(0, 1, 3, 2)[..., None, :]
+    if bf16:
+        scores, h_in = _split3(scores), _split3(h_in)
+    y = torch.einsum("bchij,bcjhp->bcihp", scores, xs) \
+        + torch.exp(L)[..., None] * torch.einsum("bcihn,bchpn->bcihp", Ch,
+                                                 h_in) \
+        + xs * D.float()[:, None]
+    y = y.reshape(B, nc * q, H, P)[:, :S]
+    return (y.to(x.dtype) if round_y else y), h
+
+
+EMULATION_CASES = SSD_CASES + [
+    (2, 512, 4, 16, 2, 16, 128),      # G 2, four chunks of state passing
+    (1, 192, 2, 16, 1, 32, 192),      # chunk 192: the kernel's 128 + 64
+    (1, 200, 3, 20, 1, 10, 128),      # P, N not multiples of 8, short tail
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", EMULATION_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_arithmetic_matches_jax_kernel(B, S, H, P, G, N, chunk,
+                                              dtype):
+    jx, tx = _inputs(B, S, H, P, G, N, dtype, seed=2)
+    y, h = _emulate_kernel(*tx, chunk=chunk)
+    assert y.dtype == tx[0].dtype and h.shape == (B, H, P, N)
+    y_k, h_k = jax_ssd(*jx, chunk=chunk, interpret=True)
+    y_p, h_p = tssm.ssd_chunked(*tx, chunk=chunk)
+    # relative to the output's scale (at least 1), as chip_smoke.py holds
+    # the kernel: chunks of 128 reach magnitudes the 16-64 step chunks of
+    # SSD_CASES do not, and f32 sums in other orders differ relatively
+    for got, want in ((y, y_k), (h, h_k), (y, y_p.float().numpy()),
+                      (h, h_p.numpy())):
+        scale = max(1.0, float(np.abs(np.asarray(want, np.float32)).max()))
+        assert _err(got, want) / scale < TOL[dtype]
+
+
+def test_kernel_rounding_leaves_y_as_exact_as_f32():
+    """Where |y| >= 16 one bf16 step is 0.125, above the 5e-2 tolerance: the
+    f32 y before its rounding must be as close to the plain f32 sum as two
+    f32 summation orders are, so that y lands on the plain version's bf16
+    value but for rare ties. Three bf16 terms do it; with one (a bf16
+    rounding of the scores, as flash attention rounds P) this emulation is
+    four orders of magnitude further off, with two, over one."""
+    _, tx = _inputs(1, 256, 4, 16, 1, 64, "bfloat16", seed=7)
+    x, dt, A, Bc, Cc, D = tx
+    Bc, Cc = (Bc.float() * 3).to(torch.bfloat16), \
+        (Cc.float() * 3).to(torch.bfloat16)
+    y, _ = _emulate_kernel(x, dt, A, Bc, Cc, D, chunk=128, round_y=False)
+    exact = [t.float() for t in (x, dt, A, Bc, Cc, D)]
+    y_p, _ = tssm.ssd_chunked(*exact, chunk=128)
+    scale = float(y_p.abs().max())
+    assert scale > 16
+    assert _err(y, y_p.numpy()) / scale < 2e-6
+
+
+def test_kernel_arithmetic_keeps_steep_decay_finite():
+    """exp(L_i - L_j) is taken below the diagonal only: |A| dt ~ 30 a step
+    overflows it above, and the emulation selects, never multiplies."""
+    jx, tx = _inputs(1, 256, 3, 8, 1, 16, "bfloat16", seed=6, a_scale=40.0)
+    y, h = _emulate_kernel(*tx, chunk=128)
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(h).all())
+    y_r, h_r = jssm.ssd_reference(*jx)
+    assert _err(y, y_r) < TOL["bfloat16"] and _err(h, h_r) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("N", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_plan_fits_a_block(N, dtype):
+    # hymba-1.5b's and mamba2-130m's scans: B 2, S 4096, H 25 / 24, P 64
+    H = 25 if N == 16 else 24
+    plan = ops.tile_plan(2, 4096, H, 64, 1, N, dtype, 128)
+    assert all(b <= ops.MAX_SMEM_BYTES for b in plan["smem_bytes"].values())
+    assert plan["smem_bytes"][3] == ops.smem_bytes(3, dtype, plan["chunk"],
+                                                   N, 64, plan["groups"])
+    if dtype == torch.bfloat16:       # the served dtype keeps Q 128
+        assert plan["chunk"] == 128
+        # C.B^T once per 13 / 12 heads, one block per SM, as many warp
+        # groups side by side as fit: 4 at N 16, 2 at N 128
+        assert plan["scan_blocks"] <= ops.SMS
+        assert plan["groups"] == (4 if N == 16 else 2)
+        assert ops.smem_bytes(3, dtype, 128, N, 64, plan["groups"] + 1) \
+            > ops.MAX_SMEM_BYTES or plan["groups"] == ops.MAX_GROUPS
+    else:                             # f32 at N 128 halves the chunk once
+        assert plan["chunk"] == (128 if N == 16 else 64)
+        assert plan["groups"] == 1 and plan["scan_blocks"] >= ops.SMS
+    assert plan["chunks"] == 4096 // plan["chunk"]
+    hs = plan["heads_per_block"]
+    assert 1 <= hs <= H and plan["groups"] <= hs
+    assert plan["scan_blocks"] == 2 * plan["chunks"] * -(-H // hs)
+    assert plan["scratch_bytes"] == 4 * 2 * plan["chunks"] * H * (64 * N + 1)
+    # shared memory grows with N and P: a wider state halves the chunk,
+    # and a state no chunk leaves room for is refused
+    wide = ops.tile_plan(1, 4096, 8, 128, 1, 256, dtype, 128)
+    assert max(wide["smem_bytes"].values()) <= ops.MAX_SMEM_BYTES
+    assert wide["chunk"] < 128
+    with pytest.raises(ValueError, match="P 512 x N 512"):
+        ops.tile_plan(1, 64, 2, 512, 1, 512, dtype, 64)

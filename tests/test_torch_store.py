@@ -170,6 +170,46 @@ def test_structure_change_falls_back_to_full_build(tmp_path):
     assert params["final_norm"].dtype == torch.float64
 
 
+def test_any_injection_failure_falls_back_to_full_build(tmp_path,
+                                                       monkeypatch):
+    """A failure of inject_image_multi that is no structure change (here an
+    OSError) makes both managers rebuild in full, as the reference does;
+    both stores then restore the same tree."""
+    import repro.ckpt.manager as jax_manager
+    import repro_torch.ckpt.manager as torch_manager
+    p0 = _np_params()
+    p1 = _changed(p0)
+    jm, tm = _managers(tmp_path)
+    jm.save(0, p0, {})
+    tm.save(0, params_from_jax(p0, "cpu"), {})
+    calls = []
+
+    def failing_inject(*args, **kwargs):
+        calls.append(1)
+        raise OSError("the disk went away mid-injection")
+
+    monkeypatch.setattr(jax_manager, "inject_image_multi", failing_inject)
+    monkeypatch.setattr(torch_manager, "inject_image_multi", failing_inject)
+    rj = jm.save(1, p1, {})
+    rt = tm.save(1, params_from_jax(p1, "cpu"), {})
+    assert len(calls) == 2
+    for r in (rj, rt):
+        assert r.layers_built > 0 and r.layers_injected == 0
+    assert _layers(jm.store, jm.image, jm.tag_of(1)) == \
+        _layers(tm.store, tm.image, tm.tag_of(1))
+    jp, _, jstep = jm.restore()
+    tp, _, tstep = tm.restore(device="cpu")
+    assert jstep == tstep == 1
+    for k, v in _walk(p1):                 # the JAX store: the saved bits
+        _assert_np_equal_bits(dict(_walk(jp))[k], v)
+    got, want = dict(_walk(tp)), dict(_walk(params_from_jax(p1, "cpu")))
+    assert sorted(got) == sorted(want)
+    for k in want:                         # the port's: the same bits
+        assert got[k].dtype == want[k].dtype and torch.equal(
+            got[k].view(torch.uint8) if got[k].dim() else got[k],
+            want[k].view(torch.uint8) if want[k].dim() else want[k]), k
+
+
 def _assert_np_equal_bits(a, b):
     a, b = np.asarray(a), np.asarray(b)
     assert a.shape == b.shape and str(a.dtype) == str(b.dtype)
