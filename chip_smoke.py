@@ -27,6 +27,14 @@ and f32) and mamba2-130m's scan shape. The SSD scan runs as three CUDA
 kernels a call (chunk state, state passing, chunk scan); its launches
 count calls, and each of the three CUDA kernels is counted as well.
 
+Last, the training half of the main path (phase ``train``): full-width
+yi-6b with its depth cut to ``TRAIN_LAYERS`` trains through
+``make_train_step``, is saved in full with its optimizer state, trains on,
+is saved incrementally through the fingerprint kernel, restored, refreshed
+into an engine and served; the kernel is then held bit for bit against its
+plain version on that training tree and timed. ``reference_check`` also
+runs one f32 train step on the card against the CPU.
+
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -59,6 +67,10 @@ BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 on the tensor cores
 # integer operations per u32 lane of the fingerprint: 3 multiplies, 1 add,
 # 2 xors and 1 shift in the mix, 1 xor and 1 add into the row's sums
 FP_OPS_PER_LANE = 9
+# the train phase: yi-6b at full width, depth cut so that 16 bytes a
+# parameter (bf16 param and grad, f32 master, m, v) fit on one card
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 2          # steps before each of the two saves
 CARD_SHELL = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
 
@@ -201,7 +213,8 @@ def phase_kernel_edges(dev) -> int:
     return rows
 
 
-def phase_fingerprint_full(payload_union, chunk_bytes) -> dict:
+def phase_fingerprint_full(payload_union, chunk_bytes,
+                           phase: str = "fingerprint_full") -> dict:
     """The kernel at the main path's shapes: the whole full-width tree."""
     from repro_torch.core.chunker import dtype_str, shape_of
     from repro_torch.core.fingerprint import chunk_geometry
@@ -228,7 +241,7 @@ def phase_fingerprint_full(payload_union, chunk_bytes) -> dict:
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
            "tree_bytes": in_bytes, "rows": rows, "lanes": lanes}
-    log("fingerprint_full", **res)
+    log(phase, **res)
     return res
 
 
@@ -531,8 +544,68 @@ def phase_reference_check(dev) -> None:
         check(np.array_equal(t_cpu.tokens, t_dev.tokens),
               f"{arch}: greedy tokens differ between card and CPU")
         errs[arch] = err
+    train = _train_step_card_vs_cpu(dev)
     log("reference_check", prefill_max_abs_err=errs, tol=1e-4,
-        tokens_equal=True)
+        tokens_equal=True, train_step=train)
+
+
+def _train_step_card_vs_cpu(dev) -> dict:
+    """One train step of yi-6b's smoke config in f32 (TF32 off), on the card
+    against the CPU from the same weights and batch, with the tolerances of
+    the CPU parity tests (tests/test_torch_train.py): the loss within 1e-5;
+    each grad leaf within 1e-4 x max(1, max |g|); AdamW from identical
+    grads (the CPU's) within 1e-6 relative (max |card - cpu| over max
+    |cpu|) for master, m, v, lr and the grad norm; the whole step's master,
+    m and v within the grads' 1e-4 x max(1, max |x|). A whole step is not
+    held to 1e-6: Adam's first update is lr g / (|g| + eps), which moves by
+    up to 2 lr where |g| is near eps and the two devices' sums round g
+    apart."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, apply_update, init_opt_state
+    from repro_torch.train.step import value_and_grad
+    cfg = get_smoke_config("yi-6b").replace(param_dtype="float32",
+                                            compute_dtype="float32")
+    acfg = AdamWConfig(peak_lr=3e-3, warmup_steps=10, decay_steps=200,
+                       weight_decay=0.0)
+    batch = SyntheticTokens(cfg.vocab, 4, 64, seed=0).batch_at(0)
+    host = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    runs = []
+    for where in ("cpu", dev):
+        params = _to(_clone(host), where)
+        loss, _, grads = value_and_grad(
+            cfg, params, {k: torch.as_tensor(v, device=where)
+                          for k, v in batch.items()})
+        runs.append((params, float(loss), grads))
+    (p_cpu, loss_cpu, g_cpu), (p_dev, loss_dev, g_dev) = runs
+    err = {"loss": abs(loss_dev - loss_cpu),
+           "grads": max(float((a.cpu() - b).abs().max())
+                        / max(1.0, float(b.abs().max()))
+                        for a, b in zip(g_dev, g_cpu))}
+    same = apply_update(acfg, _clone(p_dev), init_opt_state(p_dev),
+                        [g.to(dev) for g in g_cpu])
+    want = apply_update(acfg, p_cpu, init_opt_state(p_cpu), g_cpu)
+    step = apply_update(acfg, p_dev, init_opt_state(p_dev), g_dev)
+
+    def worst(got, ref, k, floor):
+        a, b = _flat(got[1][k]), _flat(ref[1][k])
+        return max(float((a[n].cpu() - b[n]).abs().max())
+                   / max(floor, float(b[n].abs().max())) for n in b)
+
+    for k in ("lr", "grad_norm"):
+        err[f"same_grads_{k}"] = float((same[2][k].cpu() - want[2][k]).abs()
+                                       / want[2][k].abs())
+    for k in ("master", "m", "v"):
+        err[f"same_grads_{k}"] = worst(same, want, k, 1e-30)
+        err[f"step_{k}"] = worst(step, want, k, 1.0)
+    tol = {"loss": 1e-5, "grads": 1e-4,
+           **{f"same_grads_{k}": 1e-6
+              for k in ("lr", "grad_norm", "master", "m", "v")},
+           **{f"step_{k}": 1e-4 for k in ("master", "m", "v")}}
+    for k, t in tol.items():
+        check(err[k] <= t, f"train step card vs CPU, {k}: {err[k]} > {t}")
+    return {"err": err, "tol": tol, "loss": loss_cpu}
 
 
 def phase_kernel_path(cfg, params, prompts, dev) -> dict:
@@ -551,7 +624,7 @@ def phase_kernel_path(cfg, params, prompts, dev) -> dict:
                                            apply_hybrid_block,
                                            ssm_scan_inputs)
     from repro_torch.models.layers import rms_norm
-    from repro_torch.models.model import _layer, embed_tokens
+    from repro_torch.models.model import _unstack, embed_tokens
     from repro_torch.models.ssm import ssd_chunked
     toks = torch.as_tensor(prompts, device=dev).long()
     B, S = toks.shape
@@ -566,8 +639,7 @@ def phase_kernel_path(cfg, params, prompts, dev) -> dict:
     ssd.kernel_launches = dict.fromkeys(ssd.kernel_launches, 0)
     with torch.inference_mode():
         x = embed_tokens(cfg, params, toks)
-        for i in range(cfg.n_layers):
-            p = _layer(params, i)
+        for i, p in enumerate(_unstack(params["blocks"])):
             h = rms_norm(x, p["norm"], cfg.rms_eps)
             q, k, v = _qkv(cfg, p["attn"], h, positions)
             _, _, scan = ssm_scan_inputs(cfg, p["ssm"], h)
@@ -657,7 +729,7 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
     tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
         policy = CheckpointPolicy(use_fingerprints=True,
-                                  chunk_bytes=chunk_bytes)
+                                  chunk_bytes=chunk_bytes, async_write=False)
         mgr = CheckpointManager(tmp, cfg.name, policy)
         union = {}
         for tree in mgr._payloads(params, {}, 0).values():
@@ -776,6 +848,265 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
     return out
 
 
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _chunk_bytes_changed(flat, old_rows, new_rows, chunk_bytes: int) -> tuple:
+    """(chunks whose fingerprint rows differ, their bytes) for a flat tree
+    whose leaves are in ``tree_pack_index`` order."""
+    from repro_torch.core import tree_pack_index
+    index, _, _ = tree_pack_index(flat, chunk_bytes)
+    diff = (old_rows != new_rows).any(dim=1).cpu().numpy()
+    n = nbytes = 0
+    for name, row, n_chunks in index:
+        t = flat[name]
+        size = t.numel() * t.element_size()
+        for j in np.nonzero(diff[row:row + n_chunks])[0]:
+            n += 1
+            nbytes += min(chunk_bytes, size - int(j) * chunk_bytes)
+    return n, nbytes
+
+
+def profile_step(fn, top: int = 12) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device time of the
+    CUDA kernels by name (the ``top`` longest, with their counts), their
+    sum, the wall time and the device's busy share of it (kernels do not
+    overlap on one stream). The profiler's own cost is in the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA and us > 0:
+            kernels.append((us / 1e3, e.count, e.key[:90]))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    res = {"wall_ms": wall_ms, "device_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
+           "launches": sum(k[1] for k in kernels),
+           "top": [{"ms": ms, "count": n, "name": name}
+                   for ms, n, name in kernels[:top]]}
+    log("train_profile", **res)
+    return res
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Operations of one train step's useful work: 6 x the matrix
+    parameters (all but the embedding table and the norms) x tokens, plus
+    attention's 4 D operations per unmasked causal (query, key) pair and
+    head, three times (forward, and two products each way in backward)."""
+    from repro_torch.models.model import padded_vocab
+    d, Vp = cfg.d_model, padded_vocab(cfg)
+    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim \
+        + cfg.n_heads * cfg.head_dim * d + 3 * d * cfg.d_ff
+    matrix_params = cfg.n_layers * per_layer + d * Vp
+    pairs = seq * (seq + 1) / 2
+    attn = 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * batch * cfg.n_layers
+    return 6.0 * matrix_params * batch * seq + attn
+
+
+def training_path(cfg, dev, batch: int, seq: int, steps: int,
+                  chunk_bytes: int, prompt_len: int, new_tokens: int) -> dict:
+    """The training half of the main path, through the entry points a user
+    calls: ``make_train_step`` for ``steps`` steps -> a full save of params
+    and optimizer state -> ``steps`` more -> an incremental save ->
+    ``CheckpointManager.restore`` -> ``Engine.refresh`` of the restored
+    params into an engine that served the first save's weights ->
+    ``Engine.generate``. Weights from a generator seeded 0, the traffic of
+    ``examples/quickstart.py``. Checks every step's loss and grad norm,
+    the optimizer's step count, both saves (verified; the second injected,
+    its D2H the fingerprint table alone, its writes the changed chunk
+    ranges), the restore (bit for bit) and the refreshed engine's tokens
+    (those of an engine built on the trained params). The fingerprint
+    launches are counted from the first step to the last token."""
+    from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
+    from repro_torch.ckpt.manager import unflatten_tree
+    from repro_torch.core import tree_pack_index
+    from repro_torch.core.chunker import dtype_str, shape_of
+    from repro_torch.core.fingerprint import chunk_geometry
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.fingerprint.ops import fingerprint_leaves
+    from repro_torch.kernels.fingerprint.ref import fingerprint_rows_plain
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.serve import Engine, changed_tensor_paths
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = init_opt_state(params)
+    _sync(dev)
+    n_params = sum(t.numel() for t in _flat(params).values())
+    log("train_init", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        params=n_params, param_bytes=_nbytes(params),
+        opt_bytes=_nbytes(opt), seconds=time.perf_counter() - t0)
+    acfg = AdamWConfig(peak_lr=3e-3, warmup_steps=10, decay_steps=200,
+                       weight_decay=0.0)
+    bundle = make_train_step(cfg, TrainConfig(adamw=acfg), batch, seq, dev)
+    ds = SyntheticTokens(cfg.vocab, batch=batch, seq=seq, seed=0)
+    mgr_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = {"step_s": [], "saves": []}
+
+    def train(first: int, n: int) -> None:
+        nonlocal params, opt
+        for s in range(first, first + n):
+            t = time.perf_counter()
+            params, opt, met = bundle.fn(params, opt, ds.batch_at(s))
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            out["step_s"].append(time.perf_counter() - t)
+            check(np.isfinite(loss) and np.isfinite(gnorm),
+                  f"step {s + 1}: loss {loss}, grad norm {gnorm}")
+            log("train_step", step=s + 1, loss=loss, grad_norm=gnorm,
+                lr=float(met["lr"]), seconds=out["step_s"][-1])
+
+    def plain_rows(flat):
+        leaves = [t.to(dev).contiguous() for t in flat.values()]
+        geom = [chunk_geometry(shape_of(t), dtype_str(t), chunk_bytes)
+                for t in leaves]
+        return fingerprint_rows_plain(leaves, geom)
+
+    def save(step: int):
+        n0 = fingerprint_leaves.launches
+        t = time.perf_counter()
+        rep = mgr.save(step, params, opt)
+        secs = time.perf_counter() - t
+        row = dict(step=step, seconds=secs,
+                   fp_launches=fingerprint_leaves.launches - n0,
+                   layers_built=rep.layers_built,
+                   layers_injected=rep.layers_injected,
+                   chunks_written=rep.chunks_written,
+                   chunks_prefiltered=rep.chunks_prefiltered,
+                   bytes_serialized=rep.bytes_serialized,
+                   bytes_hashed=rep.bytes_hashed, bytes_d2h=rep.bytes_d2h)
+        out["saves"].append(row)
+        log("train_save", **row)
+        check(mgr.store.verify_image(mgr.image, mgr.tag_of(step)) == [],
+              f"the save of step {step} fails verification")
+        return rep
+
+    try:
+        mgr = CheckpointManager(mgr_root, cfg.name, CheckpointPolicy(
+            incremental=True, use_fingerprints=True, async_write=False,
+            chunk_bytes=chunk_bytes))
+        # ---- the main path: launches are counted from here to the tokens
+        fingerprint_leaves.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        train(0, steps)
+        if dev.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        check(int(opt["step"]) == steps, f"optimizer step {int(opt['step'])}")
+        union = {}
+        for tree in mgr._payloads(params, opt, steps).values():
+            union.update(tree)
+        _, total_chunks, _ = tree_pack_index(union, chunk_bytes)
+        r1 = save(steps)
+        check(r1.layers_built == 6, "the first save did not build 6 layers")
+        rows1 = plain_rows(union)
+        engine = Engine(cfg, _clone(params), max_len=prompt_len + new_tokens
+                        + 8, device=dev)
+
+        train(steps, steps)
+        check(int(opt["step"]) == 2 * steps,
+              f"optimizer step {int(opt['step'])} after {2 * steps} steps")
+        union = {}
+        for tree in mgr._payloads(params, opt, 2 * steps).values():
+            union.update(tree)
+        r2 = save(2 * steps)
+        changed, changed_bytes = _chunk_bytes_changed(
+            union, rows1, plain_rows(union), chunk_bytes)
+        check(r2.layers_built == 0 and r2.layers_injected == 4,
+              "the incremental save did not inject its 4 content layers")
+        check(out["saves"][-1]["fp_launches"] == int(dev.type == "cuda"),
+              "the incremental save did not fingerprint in one launch")
+        check(r2.bytes_d2h == 8 * total_chunks,
+              f"bytes_d2h {r2.bytes_d2h} != 8 x {total_chunks} chunks")
+        check(r2.chunks_prefiltered == total_chunks - changed,
+              f"prefiltered {r2.chunks_prefiltered}, changed {changed} of "
+              f"{total_chunks}")
+        check(r2.bytes_serialized == changed_bytes,
+              f"serialized {r2.bytes_serialized} B, changed {changed_bytes}")
+
+        t = time.perf_counter()
+        rp, ro, rstep = mgr.restore(device=dev)
+        _sync(dev)
+        restore_s = time.perf_counter() - t
+        check(rstep == 2 * steps, f"restored step {rstep}")
+        live, got = _flat({"p": params, "o": opt}), _flat({"p": rp, "o": ro})
+        check(sorted(got) == sorted(live) and all(
+            got[k].dtype == live[k].dtype and torch.equal(got[k], live[k])
+            for k in live), "the restore differs from the live state")
+
+        t = time.perf_counter()
+        plan = changed_tensor_paths(mgr.store, mgr.image, mgr.tag_of(steps),
+                                    mgr.tag_of(2 * steps))
+        names = {n[len("params/"):] for n in plan if n.startswith("params/")}
+        swapped = engine.refresh(rp, changed=names, step=2 * steps)
+        refresh_s = time.perf_counter() - t
+        prompts = make_prompts(cfg, 4, prompt_len)
+        res = engine.generate(prompts, new_tokens)
+        out["launches"] = fingerprint_leaves.launches
+        # ---- end of the main path
+        res_ref = Engine(cfg, params, max_len=engine.max_len,
+                         device=dev).generate(prompts, new_tokens)
+        check(np.array_equal(res.tokens, res_ref.tokens),
+              "tokens of the refreshed engine differ from a direct engine's")
+        if dev.type == "cuda":
+            out["profile"] = profile_step(lambda: bundle.fn(
+                params, opt, ds.batch_at(2 * steps)))
+        log("train_serve", restore_seconds=restore_s,
+            refresh_seconds=refresh_s, leaves_swapped=swapped,
+            tokens_equal=True, changed_chunks=changed,
+            changed_bytes=changed_bytes, total_chunks=total_chunks,
+            first_tokens=res.tokens[0, :8].tolist())
+        out.update(restore_s=restore_s, refresh_s=refresh_s,
+                   total_chunks=total_chunks, n_params=n_params,
+                   union=union, changed_chunks=changed)
+        del rp, ro, engine
+    finally:
+        shutil.rmtree(mgr_root, ignore_errors=True)
+    return out
+
+
+def phase_train(dev, layers: int, steps: int) -> dict:
+    """Full-width yi-6b with its depth cut to ``layers``, trained through
+    ``training_path`` at the quickstart's traffic (batch 4 x 2048 tokens);
+    then the fingerprint kernel held bit for bit against its plain version
+    on the training tree (params and f32 optimizer state) and timed."""
+    from repro_torch.configs import get_config
+    cfg = get_config("yi-6b").replace(n_layers=layers)
+    batch, seq = 4, 2048
+    out = training_path(cfg, dev, batch, seq, steps, chunk_bytes=1 << 20,
+                        prompt_len=128, new_tokens=32)
+    check(out["launches"] >= 2, "the training path never launched the "
+          "fingerprint kernel")
+    flops = train_flops(cfg, batch, seq)
+    step_s = out["step_s"][1:] or out["step_s"]     # the first compiles
+    mean_s = sum(step_s) / len(step_s)
+    log("train", layers=layers, batch=batch, seq=seq, steps=2 * steps,
+        step_seconds=out["step_s"], mean_step_seconds=mean_s,
+        tokens_per_s=batch * seq / mean_s, step_flops=flops,
+        flop_bound_seconds=flops / BF16_TENSOR_OPS_PER_S,
+        peak_bytes=out.get("peak_bytes"), fp_launches=out["launches"],
+        restore_seconds=out["restore_s"], params=out["n_params"])
+    out["kernel"] = phase_fingerprint_full(out.pop("union"), 1 << 20,
+                                           "fingerprint_train")
+    return out
+
+
 def run_model(arch: str, dev, edit: str, batch: int, prompt_len: int,
               new_tokens: int) -> dict:
     """One model at full width, weights drawn on the card from a seeded
@@ -847,6 +1178,10 @@ def main() -> int:
     del hy, path
     torch.cuda.empty_cache()
     seeded = phase_seeded_shapes(dev)
+    torch.cuda.empty_cache()
+
+    # slice 5: the training half at yi-6b's full width, depth cut to fit
+    tr = phase_train(dev, layers=TRAIN_LAYERS, steps=TRAIN_STEPS)
 
     fp_row = _row("fingerprint",
                   "src/repro_torch/kernels/fingerprint/csrc/fingerprint.cu",
@@ -854,7 +1189,11 @@ def main() -> int:
                   fp_launches, dict(fp, shape=[fp["rows"]],
                                        model="yi-6b", library_ms=None))
     fp_row.update(check="bit-exact", tree_bytes=fp["tree_bytes"],
-                  launches_hybrid_path=fp_hybrid_launches)
+                  launches_hybrid_path=fp_hybrid_launches,
+                  launches_train_path=tr["launches"],
+                  train_tree={k: tr["kernel"][k] for k in (
+                      "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by",
+                      "tree_bytes", "rows")})
     ssd_row = _row("ssd_scan",
                    "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                    "src/repro/kernels/ssd_scan/kernel.py:25",

@@ -1,5 +1,6 @@
 """CheckpointManager — training state as layered, content-addressed images
-(torch port of ``repro/ckpt/manager.py``: synchronous saves and restore).
+(torch port of ``repro/ckpt/manager.py``: saves, synchronous or on one
+background writer, retention, and restore).
 
 A checkpoint is an image whose layers mirror a Dockerfile:
 
@@ -22,11 +23,22 @@ package restores the other's checkpoints bit for bit.
   changed layers go through ONE ``inject_image_multi`` transaction.
 
 Leaves stay on their device until a chunk range is actually needed.
-Retention (``keep``) is not ported yet: it needs the store's gc.
+
+With ``async_write`` the save runs on a one-worker pool and ``wait()``
+joins it. The port's optimizer updates its state in place, so ``save``
+first copies every leaf (on its device, before it returns): the writer
+then reads the state of the step it was given, whatever the trainer does
+next. After each commit, retention (``prune_steps``) drops step tags
+beyond the ``keep`` newest and sweeps the store.
+
+Not ported yet: ``packed_fingerprints=False`` (the per-leaf dispatch
+baseline) raises; ``publish_spans`` is inert, as in the reference without
+a ``registry=`` (the passive registry comes with the follower).
 """
 from __future__ import annotations
 
 import re
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -89,13 +101,38 @@ def latest_step(store: LayerStore, image: str,
                 if s is not None), default=None)
 
 
+def prune_steps(store: LayerStore, image: str, keep: int) -> bool:
+    """Retention and reclamation: drop step tags beyond the ``keep`` newest
+    (ordered by step number; tags that are not canonical step tags are
+    never candidates), then mark-and-sweep the store so their exclusive
+    blobs and layers are deleted. Returns whether anything was removed.
+    ``keep <= 0`` keeps everything."""
+    if keep <= 0:
+        return False
+    steps = sorted((s, t) for t in store.list_tags(image)
+                   if (s := step_of_tag(t)) is not None)
+    removed = False
+    for _, t in steps[:-keep]:
+        removed = store.remove_image(image, t) or removed
+    if removed:
+        store.gc()
+    return removed
+
+
 @dataclass
 class CheckpointPolicy:
+    every_steps: int = 100
+    keep: int = 3
     incremental: bool = True          # the paper's technique (vs baseline)
     use_fingerprints: bool = False    # on-device change detection
+    packed_fingerprints: bool = True  # ONE dispatch for the whole tree
+                                      # (False, the per-leaf baseline, is
+                                      # not ported)
+    async_write: bool = True
     chunk_bytes: int = 1 << 20
     durability: str = "batch"         # per-chunk fsyncs defer to one
                                       # concurrent flush at the commit
+    publish_spans: Tuple[int, ...] = (1, 4, 8)   # inert without a registry
 
 
 class CheckpointManager:
@@ -108,10 +145,17 @@ class CheckpointManager:
                  policy: Optional[CheckpointPolicy] = None,
                  image: Optional[str] = None):
         self.policy = policy or CheckpointPolicy()
+        if not self.policy.packed_fingerprints:
+            raise NotImplementedError(
+                "packed_fingerprints=False (one fingerprint dispatch per "
+                "leaf, the benchmark baseline) is not ported; the port "
+                "fingerprints the whole tree in one launch")
         self.store = LayerStore(root, chunk_bytes=self.policy.chunk_bytes,
                                 durability=self.policy.durability)
         self.image = image or self.IMAGE
         self.arch = arch
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending: Optional[Future] = None
         self._last_fps: Dict[str, np.ndarray] = {}
         self.last_report: Optional[BuildReport] = None
 
@@ -148,13 +192,31 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         return latest_step(self.store, self.image)
 
+    def wait(self) -> Optional[BuildReport]:
+        """Join the pending asynchronous save (re-raising its error);
+        returns the last save's report."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self.last_report = pending.result()
+        return self.last_report
+
     def save(self, step: int, params, opt_state) -> BuildReport:
-        """Full or incremental save per policy; returns its BuildReport."""
+        """Full or incremental save per policy. Synchronous: returns its
+        BuildReport. With ``async_write``: copies the state, hands the save
+        to the writer and returns an empty BuildReport, as the reference
+        does; ``wait()`` gives the real one."""
+        self.wait()
         payloads = self._payloads(params, opt_state, step)
         if self.policy.incremental and self.latest_step() is not None:
-            report = self._save_incremental(step, payloads)
+            fn = self._save_incremental
         else:
-            report = self._save_full(step, payloads)
+            fn = self._save_full
+        if self.policy.async_write:
+            payloads = {k: {n: t.clone() for n, t in tree.items()}
+                        for k, tree in payloads.items()}
+            self._pending = self._pool.submit(fn, step, payloads)
+            return BuildReport()
+        report = fn(step, payloads)
         self.last_report = report
         return report
 
@@ -185,6 +247,7 @@ class CheckpointManager:
             self._last_fps = fps if fps is not None else \
                 self._compute_fps(payloads, stats)
             report.bytes_d2h += stats.get("bytes_d2h", 0)
+        self._gc()
         return report
 
     def _save_incremental(self, step: int,
@@ -219,15 +282,23 @@ class CheckpointManager:
         report.bytes_d2h += stats.get("bytes_d2h", 0)
         if self.policy.use_fingerprints:
             self._last_fps = new_fps or self._last_fps
+        self._gc()
         return report
+
+    def _gc(self) -> None:
+        """Retention (``prune_steps``). Runs after the manifest commit, on
+        the saving thread, so no batch transaction is open; the store's gc
+        spares anything still dirty in one regardless."""
+        prune_steps(self.store, self.image, self.policy.keep)
 
     # ------------------------------------------------------------ restore
     def restore(self, step: Optional[int] = None, device=None
                 ) -> Optional[Tuple[Any, Any, int]]:
         """-> (params, opt_state, step) with every tensor on ``device`` (the
         card unless ``device="cpu"`` is asked for), or None when the image
-        has no checkpoint."""
+        has no checkpoint. Joins a pending asynchronous save first."""
         device = resolve_device(device)
+        self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None

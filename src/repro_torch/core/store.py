@@ -1,7 +1,8 @@
 """LayerStore — the on-disk content-addressed layer store (torch port of
-the part of ``repro/core/store.py`` that saving and serving use: blobs,
-layers, images and tags, batch durability, ``build_image`` with the DLC
-cache rules, payload loading and ``verify_image``). The format on disk is
+the part of ``repro/core/store.py`` that saving, serving and retention
+use: blobs, layers, images and tags, batch durability, ``build_image``
+with the DLC cache rules, payload loading, ``verify_image``, and
+``remove_image`` with the mark-and-sweep ``gc``). The format on disk is
 byte-identical to the JAX package's.
 
 Layout (mirrors /var/lib/docker/overlay2 + image metadata):
@@ -312,6 +313,26 @@ class LayerStore:
         self._tags_cache[name] = tags
         return list(tags)
 
+    def list_images(self) -> List[str]:
+        """Every image name with a directory under ``images/``: the
+        namespace ``gc()`` walks."""
+        d = os.path.join(self.root, "images")
+        return sorted(n for n in os.listdir(d)
+                      if os.path.isdir(os.path.join(d, n)))
+
+    def remove_image(self, name: str, tag: str) -> bool:
+        """Unlink a tag's manifest (its layers and blobs become gc fodder;
+        run ``gc()`` to reclaim them). Returns False if the tag did not
+        exist. The reference also refuses a tag under a retention lease;
+        leases come with the store's relay and repair paths, which are not
+        ported yet, so no tag is leased here."""
+        try:
+            os.remove(os.path.join(self.root, "images", name, f"{tag}.json"))
+        except OSError:
+            return False
+        self._tags_cache.pop(name, None)
+        return True
+
     # ------------------------------------------------------------ build API
     def build_content_layer(self, instruction: Instruction,
                             payload: Dict[str, torch.Tensor],
@@ -534,6 +555,97 @@ class LayerStore:
                 if want is None or r.name in want:
                     out[r.name] = assemble_tensor(r, self.read_blob)
         return out
+
+    # ------------------------------------------------------------------- GC
+    def gc(self) -> Dict[str, int]:
+        """Mark-and-sweep of unreferenced blobs, layer descriptors and
+        config blobs across the whole image namespace: the roots are every
+        committed tag of every image, so a blob that another image still
+        reaches survives. The sweep spares the files of an open batch
+        transaction (written, not yet flushed at a commit): an in-flight
+        save's blobs are never deleted out from under its manifest. Must
+        not run beside a ``durability="full"`` writer, whose pre-commit
+        files are not tracked."""
+        marked_blobs: set = set()
+        marked_layers: set = set()
+        marked_configs: set = set()
+        for name in self.list_images():
+            for tag in self.list_tags(name):
+                try:
+                    manifest, config = self.read_image(name, tag)
+                except (OSError, ValueError, KeyError):
+                    continue
+                marked_configs.add(config.config_id)
+                for lid in manifest.layer_ids:
+                    marked_layers.add(lid)
+                    if not self.has_layer(lid):
+                        continue
+                    try:
+                        layer = self.read_layer(lid)
+                    except (OSError, ValueError, KeyError):
+                        continue
+                    for rec in layer.records:
+                        marked_blobs.update(rec.chunks)
+
+        with self._dirty_lock:
+            protected = set(self._dirty_files)
+        stats = {"layers_swept": 0, "blobs_swept": 0, "bytes_swept": 0,
+                 "configs_swept": 0}
+
+        layers_dir = os.path.join(self.root, "layers")
+        for fn in os.listdir(layers_dir):
+            lid = fn[:-5]
+            if not fn.endswith(".json") or not _HEX_ID.fullmatch(lid) or \
+                    lid in marked_layers:
+                continue
+            path = os.path.join(layers_dir, fn)
+            if path in protected:
+                continue
+            try:
+                os.remove(path)
+            except OSError:
+                continue
+            self._layer_cache.pop(lid, None)
+            self._durable_paths.discard(path)
+            stats["layers_swept"] += 1
+
+        blob_root = os.path.join(self.root, "blobs", "sha256")
+        for sub in os.listdir(blob_root):
+            d = os.path.join(blob_root, sub)
+            if not os.path.isdir(d):
+                continue
+            for fn in os.listdir(d):
+                if len(fn) != 64 or not _HEX_ID.fullmatch(fn) or \
+                        fn in marked_blobs:
+                    continue
+                path = os.path.join(d, fn)
+                if path in protected:
+                    continue
+                try:
+                    size = os.path.getsize(path)
+                    os.remove(path)
+                except OSError:
+                    continue
+                self._durable_paths.discard(path)
+                stats["blobs_swept"] += 1
+                stats["bytes_swept"] += size
+
+        for name in self.list_images():
+            d = os.path.join(self.root, "images", name)
+            for fn in os.listdir(d):
+                stem = fn[:-5]
+                if not fn.endswith(".json") or not _HEX_ID.fullmatch(stem) \
+                        or stem in marked_configs:
+                    continue
+                path = os.path.join(d, fn)
+                if path in protected:
+                    continue
+                try:
+                    os.remove(path)
+                except OSError:
+                    continue
+                stats["configs_swept"] += 1
+        return stats
 
     # ---------------------------------------------------------- verification
     def verify_image(self, name: str, tag: str, deep: bool = True) -> List[str]:

@@ -1,6 +1,7 @@
 from .config import ModelConfig
-from .model import (decode_step, embed_tokens, init_cache, init_params,
-                    padded_vocab, prefill)
+from .model import (backbone, decode_step, embed_tokens, init_cache,
+                    init_params, loss_fn, padded_vocab, prefill, token_loss)
 
-__all__ = ["ModelConfig", "decode_step", "embed_tokens", "init_cache",
-           "init_params", "padded_vocab", "prefill"]
+__all__ = ["ModelConfig", "backbone", "decode_step", "embed_tokens",
+           "init_cache", "init_params", "loss_fn", "padded_vocab", "prefill",
+           "token_loss"]

@@ -11,7 +11,10 @@ port does too: no fused attention operator stands in for them).
 All operate on (B, S, H, D) layouts with GQA grouping handled by reshaping
 q to (B, KVH, G, S, D). Score and value products take their inputs'
 values exactly and accumulate in f32, as the JAX code's
-``preferred_element_type=float32`` asks.
+``preferred_element_type=float32`` asks. Under autograd each KV block
+(blockwise) or query block (banded) is recomputed in backward, as the JAX
+code's ``@jax.checkpoint`` scan bodies are, so a layer's backward never
+holds every block's scores.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from .layers import as_torch_dtype, rounded
+from .layers import as_torch_dtype, recomputed, rounded
 
 NEG_INF = -1e30
 
@@ -75,14 +78,7 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_pos = torch.arange(S, device=q.device)
     G = Hq // KVH
 
-    m = torch.full((B, KVH, G, S), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, KVH, G, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KVH, G, S, Dv), dtype=torch.float32,
-                      device=q.device)
-    for j in range(nb):
-        kb = kh[:, :, j * kv_block:(j + 1) * kv_block]
-        vb = vh[:, :, j * kv_block:(j + 1) * kv_block]
+    def body(m, l, acc, qh, kb, vb, j):
         s = _scores(qh, kb).to(score_dtype)
         kv_pos = j * kv_block + torch.arange(kv_block, device=q.device)
         mask = torch.ones((S, kv_block), dtype=torch.bool, device=q.device)
@@ -96,7 +92,18 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.float().sum(dim=-1)
         acc = acc * alpha[..., None] + _values(p.to(vb.dtype), vb)
-        m = m_new
+        return m_new, l, acc
+
+    m = torch.full((B, KVH, G, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KVH, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KVH, G, S, Dv), dtype=torch.float32,
+                      device=q.device)
+    for j in range(nb):
+        blk = slice(j * kv_block, (j + 1) * kv_block)
+        # backward recomputes the block's scores (flash-style)
+        m, l, acc = recomputed(body, m, l, acc, qh, kh[:, :, blk],
+                               vh[:, :, blk], j)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return _merge_heads(out).to(q.dtype)
 
@@ -122,13 +129,8 @@ def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kh = k.permute(0, 2, 1, 3)
     vh = v.permute(0, 2, 1, 3)
     G = Hq // KVH
-    outs = []
-    for i in range(nqb):
-        q0 = i * q_block
-        qb = qh[:, :, :, q0:q0 + q_block]
-        start = max(q0 + q_block - span, 0)
-        kb = kh[:, :, start:start + span]
-        vb = vh[:, :, start:start + span]
+
+    def body(qb, kb, vb, q0, start):
         s = _scores(qb, kb).to(score_dtype)
         q_pos = q0 + torch.arange(q_block, device=q.device)
         kv_pos = start + torch.arange(span, device=q.device)
@@ -138,8 +140,17 @@ def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mx = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - mx)
         l = p.float().sum(dim=-1, keepdim=True)
-        outs.append(_values((p.float() / torch.clamp(l, min=1e-30))
-                            .to(vb.dtype), vb))
+        return _values((p.float() / torch.clamp(l, min=1e-30))
+                       .to(vb.dtype), vb)
+
+    outs = []
+    for i in range(nqb):
+        q0 = i * q_block
+        start = max(q0 + q_block - span, 0)
+        # backward recomputes the banded scores of each query block
+        outs.append(recomputed(body, qh[:, :, :, q0:q0 + q_block],
+                               kh[:, :, start:start + span],
+                               vh[:, :, start:start + span], q0, start))
     out = torch.cat(outs, dim=3).reshape(B, KVH, G, S, Dv)
     return _merge_heads(out).to(q.dtype)
 

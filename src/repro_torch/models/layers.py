@@ -10,6 +10,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -26,6 +27,17 @@ def rounded(value: float, dtype: torch.dtype) -> float:
     code's ``jnp.asarray(value, dtype)``) without a host-to-device copy,
     which would stall the stream."""
     return torch.tensor(value, dtype=dtype).item()
+
+
+def recomputed(fn, *args):
+    """``fn(*args)``, its intermediates recomputed in backward when autograd
+    records through it (the JAX code's ``@jax.checkpoint`` on a scan body):
+    backward then holds only ``args``, one block at a time. Non-reentrant,
+    so grads also reach tensors that ``fn`` closes over."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,20 +1,31 @@
-"""Top-level model: embedding, the layer stack, prefill, decode (torch port
-of ``repro/models/model.py`` for the dense, ssm and hybrid families).
+"""Top-level model: embedding, the layer stack, loss, prefill, decode
+(torch port of ``repro/models/model.py`` for the dense, ssm and hybrid
+families).
 
 Parameters are layer-stacked, as in the JAX package: every block leaf has a
 leading ``n_layers`` dim, and the layers run as a loop over that dim. Param
 paths, shapes and dtypes equal the JAX package's, so a checkpoint saved by
-either package restores into the other.
+either package restores into the other. The rematerialization policy
+(``cfg.remat``) wraps each layer in ``torch.utils.checkpoint``.
+
+The LM head / CE loss is computed *chunked over the sequence*, each chunk's
+logits recomputed in backward, so the full (B, S, V) logits tensor is never
+held.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as tckpt
 
 from .blocks import FAMILY_APPLY, FAMILY_DECODE, FAMILY_INIT, init_layer_cache
 from .config import ModelConfig
-from .layers import as_torch_dtype, dense, rms_norm, rounded, trunc_normal
+from .layers import (as_torch_dtype, dense, recomputed, rms_norm, rounded,
+                     trunc_normal)
+
+LOSS_CHUNK = 512
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -56,23 +67,137 @@ def lm_head_weight(cfg: ModelConfig, params: Dict) -> torch.Tensor:
     return params["lm_head"]
 
 
-def _slice(tree: Dict, i: int) -> Dict:
-    """Layer ``i`` of a layer-stacked subtree (blocks nest, e.g. the hybrid
-    block's ``attn/`` and ``ssm/``)."""
-    return {k: _slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree: Dict) -> List[Dict]:
+    """Every layer of a layer-stacked subtree (blocks nest, e.g. the hybrid
+    block's ``attn/`` and ``ssm/``), each leaf split once with ``unbind``:
+    under autograd its backward stacks the layers' grads once, where
+    indexing each layer would allocate a zero grad of the whole leaf per
+    layer."""
+    parts = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
 def _layer(params: Dict, i: int) -> Dict:
-    return _slice(params["blocks"], i)
+    """Layer ``i`` of the blocks."""
+    return _unstack(params["blocks"])[i]
 
 
-def embed_tokens(cfg: ModelConfig, params: Dict,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens].to(as_torch_dtype(cfg.compute_dtype))
+# matrix products: what ``jax.checkpoint_policies.checkpoint_dots`` saves
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return tckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else tckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the config's rematerialization policy: "none" saves
+    everything, "dots" the matrix products' results, any other value only
+    the block boundaries ("nothing"). "outputs" saves the tensors the JAX
+    blocks name ``block_out``; torch's policies see operators, not names,
+    so it is refused."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "outputs":
+        raise NotImplementedError(
+            "remat='outputs' (save only the tensors named 'block_out') has "
+            "no torch checkpoint policy: torch's policies select operators, "
+            "not named values; use 'nothing', 'dots' or 'none'")
+    context_fn = tckpt.noop_context_fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(
+            tckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return tckpt.checkpoint(fn, *args, use_reentrant=False,
+                                context_fn=context_fn)
+    return wrapped
+
+
+def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    x = torch.nn.functional.embedding(tokens, params["embed"]) \
+        .to(as_torch_dtype(cfg.compute_dtype))
     if cfg.embed_scale:
         x = x * rounded(cfg.d_model ** 0.5, x.dtype)
+    if prefix_embeds is not None:
+        # modality stub: precomputed patch/frame embeddings occupy the
+        # first n_prefix positions
+        P = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
     return x
+
+
+def backbone(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+             positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply all blocks. Returns (hidden, aux_loss_sum); the dense, ssm and
+    hybrid blocks add no auxiliary loss, so the sum is a 0-d f32 zero."""
+    _check_family(cfg)
+    apply = FAMILY_APPLY[cfg.family]
+
+    def layer(h, p):
+        return apply(cfg, p, h, positions)[0]
+
+    layer = _remat(cfg, layer)
+    for p in _unstack(params["blocks"]):
+        x = layer(x, p)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params["final_norm"], cfg.rms_eps), aux
+
+
+# ------------------------------------------------------------------- train
+def token_loss(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
+               labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Chunked cross-entropy over sequence chunks of ``LOSS_CHUNK``; padded
+    vocab ids are masked to -1e30 and each chunk's logits are recomputed
+    in backward, never stored."""
+    B, S, d = hidden.shape
+    W = lm_head_weight(cfg, params)
+    Vp = W.shape[-1]
+    chunk = min(LOSS_CHUNK, S)
+    while S % chunk:
+        chunk //= 2
+    pad = torch.arange(Vp, device=hidden.device) >= cfg.vocab
+    logit_dtype = as_torch_dtype(cfg.logit_dtype)
+
+    def chunk_loss(h, l, m, W):
+        logits = dense(h, W).to(logit_dtype).masked_fill(pad, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, l[..., None])[..., 0]
+        ce = (lse - picked) * m
+        return ce.sum(), m.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(S // chunk):
+        part = slice(c * chunk, (c + 1) * chunk)
+        ce, n = recomputed(chunk_loss, hidden[:, part],
+                           labels[:, part].long(), mask[:, part], W)
+        tot = tot + ce
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens (B,S) int, labels (B,S) int, mask (B,S) f32, optional
+    prefix_embeds (B,P,d). Returns (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = embed_tokens(cfg, params, tokens, batch.get("prefix_embeds"))
+    hidden, aux = backbone(cfg, params, x, positions)
+    ce = token_loss(cfg, params, hidden, batch["labels"], batch["mask"])
+    loss = ce + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
+    return loss, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
@@ -85,9 +210,9 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_tokens(cfg, params, tokens)
     caches = []
-    for i in range(cfg.n_layers):
-        x, cache = FAMILY_APPLY[cfg.family](cfg, _layer(params, i), x,
-                                            positions, collect_cache=True)
+    for p in _unstack(params["blocks"]):
+        x, cache = FAMILY_APPLY[cfg.family](cfg, p, x, positions,
+                                            collect_cache=True)
         caches.append(cache)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = dense(x[:, -1], lm_head_weight(cfg, params)) \
@@ -113,10 +238,9 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     Returns (cache, logits (B, padded vocab))."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens)
-    for i in range(cfg.n_layers):
+    for i, p in enumerate(_unstack(params["blocks"])):
         layer_cache = {k: v[i] for k, v in cache.items()}
-        new, x = FAMILY_DECODE[cfg.family](cfg, _layer(params, i),
-                                           layer_cache, x, pos)
+        new, x = FAMILY_DECODE[cfg.family](cfg, p, layer_cache, x, pos)
         for k, t in new.items():
             if t is not layer_cache[k]:
                 cache[k][i].copy_(t)

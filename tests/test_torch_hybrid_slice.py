@@ -64,7 +64,7 @@ def hybrid(tmp_path_factory):
     jparams = init_params(cfg, jax.random.PRNGKey(3))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     mgr = CheckpointManager(root, cfg.name, CheckpointPolicy(
-        use_fingerprints=True, chunk_bytes=2048))
+        use_fingerprints=True, chunk_bytes=2048, async_write=False))
     r0 = mgr.save(0, params, {})
 
     loaded, step = launch.load_params(tcfg, root, "cpu")

@@ -1,7 +1,8 @@
-"""The port stands alone: no file of ``src/repro_torch`` nor ``chip_smoke.py``
-imports the JAX package, JAX or ml_dtypes; the slice runs in a process where
-those cannot be imported; and the port's entry points refuse to drop to the
-CPU when no card is present and none was asked for."""
+"""The port stands alone: no file of ``src/repro_torch``, nor ``chip_smoke.py``
+nor ``examples/quickstart_torch.py``, imports the JAX package, JAX or
+ml_dtypes; the serving slice and the training quickstart run in a process
+where those cannot be imported; and the port's entry points refuse to drop
+to the CPU when no card is present and none was asked for."""
 import ast
 import os
 import subprocess
@@ -19,8 +20,11 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 BANNED = ("repro", "jax", "jaxlib", "ml_dtypes")
 
 
+QUICKSTART = os.path.join(ROOT, "examples", "quickstart_torch.py")
+
+
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART]
     for d, _, files in os.walk(PORT):
         out.extend(os.path.join(d, f) for f in sorted(files)
                    if f.endswith(".py"))
@@ -62,7 +66,8 @@ cfg = get_smoke_config("yi-6b")
 params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 root = tempfile.mkdtemp()
 mgr = CheckpointManager(root, cfg.name, CheckpointPolicy(use_fingerprints=True,
-                                                         chunk_bytes=4096))
+                                                         chunk_bytes=4096,
+                                                         async_write=False))
 mgr.save(0, params, {})
 loaded, _ = load_params(cfg, root, "cpu")
 eng, res, _ = serve(cfg, loaded, make_prompts(cfg, 2, 8), 4, "cpu")
@@ -85,6 +90,27 @@ def test_slice_runs_with_jax_and_repro_unimportable():
     assert "slice-ok (2, 4)" in proc.stdout
 
 
+_BLOCKED_QUICKSTART = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None
+sys.argv = [sys.argv[1], "--device", "cpu", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--save-every", "1"]
+runpy.run_path(sys.argv[0], run_name="__main__")
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+"""
+
+
+def test_training_quickstart_runs_with_jax_and_repro_unimportable():
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_QUICKSTART,
+                           QUICKSTART], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "quickstart OK" in proc.stdout
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -103,6 +129,22 @@ def test_engine_without_a_device_refuses_the_cpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, params)
     assert Engine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_quickstart_defaults_to_the_card(no_gpu):
+    import runpy
+    mod = runpy.run_path(QUICKSTART)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod["main"](["--steps", "1"])
+
+
+def test_train_step_without_a_device_refuses_the_cpu(no_gpu):
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg, _ = _smoke()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, TrainConfig(), 2, 8)
+    assert make_train_step(cfg, TrainConfig(), 2, 8,
+                           device="cpu").microbatches == 1
 
 
 def test_launch_serve_defaults_to_the_card(no_gpu):

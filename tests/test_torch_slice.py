@@ -46,7 +46,7 @@ def slice_run(tmp_path_factory):
         jax.tree.map(np.asarray, init_params(cfg, jax.random.PRNGKey(3))),
         "cpu")
     mgr = CheckpointManager(root, cfg.name, CheckpointPolicy(
-        use_fingerprints=True, chunk_bytes=2048))
+        use_fingerprints=True, chunk_bytes=2048, async_write=False))
     r0 = mgr.save(0, params, {})
 
     loaded, step = launch.load_params(tcfg, root, "cpu")

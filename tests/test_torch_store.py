@@ -50,7 +50,8 @@ def _managers(tmp_path):
                               chunk_bytes=CHUNK, keep=10))
     tm = CheckpointManager(str(tmp_path / "torch"), "yi-6b",
                            CheckpointPolicy(use_fingerprints=True,
-                                            chunk_bytes=CHUNK))
+                                            chunk_bytes=CHUNK,
+                                            async_write=False))
     return jm, tm
 
 
@@ -139,7 +140,8 @@ def test_unchanged_structure_save_injects_not_rebuilds(tmp_path, monkeypatch):
     p0 = params_from_jax(_np_params(), "cpu")
     tm = CheckpointManager(str(tmp_path), "yi-6b",
                            CheckpointPolicy(use_fingerprints=True,
-                                            chunk_bytes=CHUNK))
+                                            chunk_bytes=CHUNK,
+                                            async_write=False))
     tm.save(0, p0, {})
     recs = [r for lid in tm.store.read_image("ckpt", tm.tag_of(0))[0].layer_ids
             for r in tm.store.read_layer(lid).records]
@@ -160,7 +162,8 @@ def test_structure_change_falls_back_to_full_build(tmp_path):
     p0 = params_from_jax(_np_params(), "cpu")
     tm = CheckpointManager(str(tmp_path), "yi-6b",
                            CheckpointPolicy(use_fingerprints=True,
-                                            chunk_bytes=CHUNK))
+                                            chunk_bytes=CHUNK,
+                                            async_write=False))
     tm.save(0, p0, {})
     p1 = dict(p0)
     p1["final_norm"] = p0["final_norm"].double()
@@ -301,7 +304,8 @@ def test_save_policies_match_jax(tmp_path, policy):
                     JaxPolicy(async_write=False, chunk_bytes=CHUNK, keep=10,
                               **policy))
     tm = CheckpointManager(str(tmp_path / "torch"), "yi-6b",
-                           CheckpointPolicy(chunk_bytes=CHUNK, **policy))
+                           CheckpointPolicy(chunk_bytes=CHUNK, async_write=False,
+                                            **policy))
     for step, p in ((0, p0), (1, p1)):
         rj = jm.save(step, p, {})
         rt = tm.save(step, params_from_jax(p, "cpu"), {})

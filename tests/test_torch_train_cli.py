@@ -1,0 +1,72 @@
+"""The port's training entry points on the CPU: ``examples/quickstart_torch.py``
+run short, and ``python -m repro_torch.launch.train``, whose resumed run
+must end bit-identical to an uninterrupted one. Without a card and without
+``--device`` the launcher raises, and the options that wait for other parts
+of the port raise ``NotImplementedError``."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# small shapes: one thread each, so the suite's parallel workers do not
+# oversubscribe the cores that timing-sensitive tests share with them
+torch.set_num_threads(1)
+
+from repro_torch.core import LayerStore  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = ["--arch", "yi-6b", "--smoke", "--device", "cpu", "--batch", "2",
+         "--seq", "16", "--ckpt-every", "2"]
+
+
+def test_quickstart_runs_short_on_the_cpu():
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", "quickstart_torch.py"),
+         "--device", "cpu", "--steps", "4", "--batch", "2", "--seq", "16",
+         "--save-every", "2"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[ckpt] step 2: injected=0" in proc.stdout
+    assert "[ckpt] step 4: injected=4" in proc.stdout
+    assert "quickstart OK" in proc.stdout
+
+
+def _payload(root, step):
+    return LayerStore(root).load_image_payload("ckpt", f"step-{step:08d}")
+
+
+def test_resumed_run_ends_bit_identical_to_an_uninterrupted_one(tmp_path,
+                                                                capsys):
+    resumed, straight = str(tmp_path / "resumed"), str(tmp_path / "straight")
+    train.main(SMOKE + ["--ckpt", resumed, "--steps", "4"])
+    assert "resumed" not in capsys.readouterr().out
+    train.main(SMOKE + ["--ckpt", resumed, "--steps", "6"])
+    assert "[train] resumed from step 4" in capsys.readouterr().out
+    train.main(SMOKE + ["--ckpt", straight, "--steps", "6"])
+    got, want = _payload(resumed, 6), _payload(straight, 6)
+    assert sorted(got) == sorted(want)
+    assert int(got["opt/step"]) == 6 and int(got["opt/__step__"][0]) == 6
+    for name in want:
+        assert got[name].dtype == want[name].dtype and \
+            torch.equal(got[name], want[name]), name
+    # retention kept the reference's default three step tags
+    assert LayerStore(resumed).list_tags("ckpt") == \
+        [f"step-{s:08d}" for s in (2, 4, 6)]
+
+
+def test_launcher_without_a_card_refuses_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "yi-6b", "--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--watchdog-s", "1"]],
+                         ids=["mesh", "watchdog"])
+def test_options_waiting_for_other_parts_raise(flag):
+    with pytest.raises(NotImplementedError):
+        train.main(SMOKE + ["--steps", "1"] + flag)
