@@ -10,14 +10,20 @@ wgmma, or if one of the SSD scan's kernels spills), and holds each kernel
 against its plain torch version on edge cases: the fingerprint bit-exactly, flash attention (both its f32 and its
 bf16 tensor-core kernel) and the SSD scan within the JAX kernel tests'
 tolerances. It checks the f32 models of each family on the card against
-the CPU, then runs the serving path
+the CPU, then runs the serving half of the main path
 
-    save (full, fingerprinted) -> restore + serve -> incremental save
-    -> sparse refresh -> serve
+    save (full, fingerprinted) -> CheckpointFollower.poll -> engine + serve
+    -> incremental save -> follower.poll_and_refresh(engine) -> serve
 
 at the full width of yi-6b (dense, 12.1 GB of bf16 weights) and of
 hymba-1.5b (hybrid, 2.8 GB, 4096-token prompts), weights drawn on the card
-from a seeded generator. On every layer of hymba's prefill it then calls
+from a seeded generator. yi-6b's follower pulls from the trainer's store
+into a replica store (the second pull must carry exactly the chunks the
+incremental save wrote), and a blob then rotted at rest in the replica
+must be caught by the follower's verify gate and healed by
+``repair_image``. hymba's follower has no live peer: it applies the
+bundles the manager publishes into a registry directory, with no
+negotiation. On every layer of hymba's prefill it then calls
 the flash attention and SSD scan entry points on the tensors the model
 computes and holds them against the model's own results (the served
 models, as in the JAX package, run the plain attention and scan), and
@@ -44,6 +50,7 @@ exit.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -710,27 +717,53 @@ def _edit_leaf(params, path: str, layer: int):
     return new, leaf
 
 
+def _blob_set(store, image: str, tag: str) -> set:
+    manifest, _ = store.read_image(image, tag)
+    return {h for lid in manifest.layer_ids
+            for r in store.read_layer(lid).records for h in r.chunks}
+
+
+def _pull_log(pull) -> dict:
+    return {k: getattr(pull, k) for k in (
+        "blobs_sent", "blobs_dedup", "layers_sent", "bytes_sent",
+        "bytes_payload", "bytes_meta", "layers_deep_verified",
+        "layers_rekey_verified", "blobs_hashed_remote")}
+
+
 def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
-                 prompt_len: int, new_tokens: int, edit: str) -> dict:
-    """save -> restore + serve -> incremental save -> sparse refresh ->
-    serve, through the entry points a user calls. Between the saves, one
-    layer of the leaf ``edit`` and ``final_norm`` change on the device, and
-    the sparse plan must name exactly those two leaves. Returns the counts
-    the caller checks against the kernels, the engine and the prompts."""
+                 prompt_len: int, new_tokens: int, edit: str,
+                 follower: str) -> dict:
+    """The main path through the entry points a user calls:
+
+        save -> follower poll -> engine + serve -> incremental save
+        -> follower poll_and_refresh -> serve
+
+    ``follower="smart"`` pulls from the trainer's store (one have-set
+    negotiation, only missing chunks); ``"passive"`` has no live peer and
+    applies the bundles the manager publishes into a registry directory,
+    with no negotiation. Between the saves, one layer of the leaf ``edit``
+    and ``final_norm`` change on the device, and the update must name
+    exactly those two leaves. After the main path, the smart follower's
+    verify gate is shown to catch a blob rotted at rest in the replica and
+    to heal it from the trainer's store. Returns the counts the caller
+    checks against the kernels, the engine and the prompts."""
     from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
-    from repro_torch.ckpt.manager import unflatten_tree
     from repro_torch.core import tree_pack_index
     from repro_torch.kernels.fingerprint.ops import fingerprint_leaves
-    from repro_torch.launch.serve import load_params, make_prompts, serve
+    from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.models import decode_step, init_cache, prefill
-    from repro_torch.serve import Engine, changed_tensor_paths
+    from repro_torch.serve import CheckpointFollower, Engine
 
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    rep = tempfile.mkdtemp(prefix="chip_smoke_replica_")
+    reg = tempfile.mkdtemp(prefix="chip_smoke_registry_")
+    smart = follower == "smart"
     try:
         policy = CheckpointPolicy(use_fingerprints=True,
                                   chunk_bytes=chunk_bytes, async_write=False)
-        mgr = CheckpointManager(tmp, cfg.name, policy)
+        mgr = CheckpointManager(tmp, cfg.name, policy,
+                                registry=None if smart else reg)
         union = {}
         for tree in mgr._payloads(params, {}, 0).values():
             union.update(tree)
@@ -750,24 +783,43 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
         check(r0.layers_built == 6, "full save did not build 6 layers")
         check(mgr.store.verify_image(mgr.image, mgr.tag_of(0), deep=False)
               == [], "full save fails verification")
+        check(smart or mgr.last_publish_error is None,
+              f"publish failed: {mgr.last_publish_error}")
 
+        fol = CheckpointFollower(remote=mgr.store if smart else None,
+                                 local=rep, registry=None if smart else reg)
         t0 = time.perf_counter()
-        restored, step = load_params(cfg, tmp, dev)
-        load_s = time.perf_counter() - t0
-        check(step == 0, "restored the wrong step")
-        flat_r, flat_p = _flat(restored), _flat(params)
-        check(sorted(flat_r) == sorted(flat_p) and all(
-            torch.equal(flat_r[k], flat_p[k]) for k in flat_p),
-            "restored weights differ from the saved ones")
+        upd0 = fol.poll()
+        pull_s = time.perf_counter() - t0
+        check(upd0 is not None and upd0.full and upd0.step == 0,
+              "the first poll is not a full update of step 0")
+        check(upd0.tensors_loaded == len(union),
+              f"first poll loaded {upd0.tensors_loaded} of {len(union)}")
+        check(all(t.device.type == "cpu" for t in _flat(upd0.params).values()),
+              "poll returned tensors off the host")
+        if smart:
+            check(fol.last_pull.blobs_sent == r0.chunks_written,
+                  "the first pull did not send every blob")
+            pull = _pull_log(fol.last_pull)
+        else:
+            plan = fol.last_plan
+            check(plan.negotiations == 0 and plan.hops == 1
+                  and plan.edges_skipped == 0, f"passive plan {plan}")
+            pull = dataclasses.asdict(plan)
+        log("pull", follower=follower, seconds=pull_s, **pull)
         prompts = make_prompts(cfg, batch, prompt_len)
-        eng, res, gen_s = serve(cfg, restored, prompts, new_tokens, dev)
+        eng, res, gen_s = serve(cfg, upd0.params, prompts, new_tokens, dev)
+        flat_e, flat_p = _flat(eng.params), _flat(params)
+        check(sorted(flat_e) == sorted(flat_p) and all(
+            torch.equal(flat_e[k], flat_p[k]) for k in flat_p),
+            "the pulled weights differ from the saved ones")
+        del upd0
         check(res.tokens.shape == (batch, new_tokens), "wrong token shape")
         check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
               "token out of range")
         check(bool(np.isfinite(res.logits_last).all()), "non-finite logits")
-        log("serve", load_seconds=load_s, seconds=gen_s, batch=batch,
-            prompt_len=prompt_len, new_tokens=new_tokens,
-            tokens_per_s=res.tokens.size / gen_s,
+        log("serve", seconds=gen_s, batch=batch, prompt_len=prompt_len,
+            new_tokens=new_tokens, tokens_per_s=res.tokens.size / gen_s,
             first_tokens=res.tokens[0, :8].tolist())
 
         # a few leaves change on the device: one layer of ``edit``, and
@@ -805,31 +857,53 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
               "prefilter count is off")
         check(mgr.store.verify_image(mgr.image, mgr.tag_of(1)) == [],
               "incremental save fails verification")
+        written = _blob_set(mgr.store, mgr.image, mgr.tag_of(1)) - \
+            _blob_set(mgr.store, mgr.image, mgr.tag_of(0))
+        written_bytes = sum(os.path.getsize(mgr.store._blob_path(h))
+                            for h in written)
+        check(len(written) == r1.chunks_written, "new blobs != chunks written")
 
         t0 = time.perf_counter()
-        changed = changed_tensor_paths(mgr.store, mgr.image, mgr.tag_of(0),
-                                       mgr.tag_of(1))
-        check(changed == {f"params/{edit}", "params/final_norm",
-                          "opt/__step__"}, f"sparse plan {changed}")
-        names = sorted(n for n in changed if n.startswith("params/"))
-        part = mgr.store.load_image_payload(mgr.image, mgr.tag_of(1),
-                                            names=names)
-        tree = unflatten_tree({k[len("params/"):]: v for k, v in part.items()})
-        swapped = eng.refresh(tree, changed={n[len("params/"):] for n in names},
-                              step=1)
+        upd1 = fol.poll_and_refresh(eng)
         refresh_s = time.perf_counter() - t0
         res2 = eng.generate(prompts, new_tokens)
         out["launches"] = fingerprint_leaves.launches
         # ---- end of the main path
+        check(upd1 is not None and upd1.step == 1, "no update of step 1")
+        check(upd1.changed_params == {edit, "final_norm"},
+              f"sparse plan {upd1.changed_params}")
+        check(upd1.tensors_loaded == 3, "the update loaded extra tensors "
+              f"({upd1.tensors_loaded}; want the 2 leaves and opt/__step__)")
+        check(eng.last_refresh_leaves == 2, "the engine swapped "
+              f"{eng.last_refresh_leaves} leaves, not 2")
+        if smart:
+            wire = fol.last_pull
+            check(wire.blobs_sent == r1.chunks_written
+                  and wire.bytes_payload == written_bytes,
+                  f"pulled {wire.blobs_sent} blobs / {wire.bytes_payload} B;"
+                  f" the save wrote {r1.chunks_written} / {written_bytes} B")
+            pull = _pull_log(wire)
+        else:
+            check(fol.last_plan.negotiations == 0, "passive pull negotiated")
+            pull = dataclasses.asdict(fol.last_plan)
+        health = fol.health()
+        check(health.polls == 2 and health.failures == 0,
+              f"follower health {health}")
+        check(fol.poll() is None, "a third poll found an update")
         res_ref = Engine(cfg, params1, max_len=eng.max_len,
                          device=dev).generate(prompts, new_tokens)
-        check(len(part) == 2 and swapped == 2, "refresh loaded extra leaves")
         check(np.array_equal(res2.tokens, res_ref.tokens),
               "tokens after the sparse refresh differ from a direct engine")
-        log("refresh", seconds=refresh_s, changed=sorted(changed),
-            tensors_loaded=len(part), leaves_swapped=swapped,
-            tokens_equal=True,
-            tokens_moved=int((res2.tokens != res.tokens).sum()))
+        log("refresh", follower=follower, seconds=refresh_s,
+            changed=sorted(upd1.changed_params),
+            tensors_loaded=upd1.tensors_loaded,
+            leaves_swapped=eng.last_refresh_leaves, tokens_equal=True,
+            written_chunks=r1.chunks_written, written_bytes=written_bytes,
+            tokens_moved=int((res2.tokens != res.tokens).sum()), **pull)
+
+        if smart:
+            out["repair"] = _verify_and_repair(cfg, mgr, fol, eng, params,
+                                               edit, prompts, new_tokens, res)
 
         with torch.inference_mode():
             toks = torch.as_tensor(prompts, device=dev).long()
@@ -843,8 +917,49 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
             prompt_len=prompt_len, decode_step_ops=dec_ops,
             ms_per_op=dec_ms / dec_ops)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for d in (tmp, rep, reg):
+            shutil.rmtree(d, ignore_errors=True)
     out.update(engine=eng, prompts=prompts)
+    return out
+
+
+def _verify_and_repair(cfg, mgr, fol, eng, params, edit, prompts,
+                       new_tokens, res0) -> dict:
+    """save(2) puts the first weights back, so the chunks the update needs
+    are ones the replica still holds for step 0 and the pull does not send
+    them again. One of them is rotted at rest in the replica first: the
+    follower's verify gate must catch it, ``repair_image`` must heal it
+    from the trainer's store, and the engine must serve step 0's tokens."""
+    mgr.save(2, params, {})
+    stale = (_blob_set(fol.local, fol.image, mgr.tag_of(0))
+             & _blob_set(mgr.store, mgr.image, mgr.tag_of(2))) - \
+        _blob_set(fol.local, fol.image, mgr.tag_of(1))
+    victim = sorted(stale)[0]
+    path = fol.local._blob_path(victim)
+    with open(path, "r+b") as f:
+        byte = f.read(1)
+        f.seek(0)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    t0 = time.perf_counter()
+    upd = fol.poll_and_refresh(eng)
+    seconds = time.perf_counter() - t0
+    health = fol.health()
+    check(upd is not None and upd.step == 2,
+          f"the rotted revision was not applied: {fol.last_verify_error}")
+    check(health.corrupt_polls == 1 and health.repairs == 1,
+          f"verify gate and repair: {health}")
+    check(upd.changed_params == {edit, "final_norm"}
+          and eng.last_refresh_leaves == 2, "repair poll swapped other leaves")
+    check(fol.local.verify_image(fol.image, mgr.tag_of(2), deep=False)
+          == [], "the replica does not verify after the repair")
+    res = eng.generate(prompts, new_tokens)
+    check(np.array_equal(res.tokens, res0.tokens),
+          "tokens after the repair differ from step 0's")
+    out = dict(seconds=seconds, corrupt_polls=health.corrupt_polls,
+               repairs=health.repairs, stale_blobs=len(stale),
+               blobs_sent=fol.last_pull.blobs_sent,
+               bytes_payload=fol.last_pull.bytes_payload, tokens_equal=True)
+    log("repair", **out)
     return out
 
 
@@ -932,7 +1047,6 @@ def training_path(cfg, dev, batch: int, seq: int, steps: int,
     (those of an engine built on the trained params). The fingerprint
     launches are counted from the first step to the last token."""
     from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
-    from repro_torch.ckpt.manager import unflatten_tree
     from repro_torch.core import tree_pack_index
     from repro_torch.core.chunker import dtype_str, shape_of
     from repro_torch.core.fingerprint import chunk_geometry
@@ -1108,7 +1222,7 @@ def phase_train(dev, layers: int, steps: int) -> dict:
 
 
 def run_model(arch: str, dev, edit: str, batch: int, prompt_len: int,
-              new_tokens: int) -> dict:
+              new_tokens: int, follower: str) -> dict:
     """One model at full width, weights drawn on the card from a seeded
     generator, through ``serving_path``; checks the fingerprint launches."""
     from repro_torch.configs import get_config
@@ -1122,7 +1236,7 @@ def run_model(arch: str, dev, edit: str, batch: int, prompt_len: int,
         d_model=cfg.d_model, dtype=cfg.param_dtype)
     out = serving_path(cfg, params, dev, chunk_bytes=1 << 20, batch=batch,
                        prompt_len=prompt_len, new_tokens=new_tokens,
-                       edit=edit)
+                       edit=edit, follower=follower)
     check(out["save2_launches"] == 1,
           f"incremental save made {out['save2_launches']} kernel launches")
     check(out["launches"] >= 1, "the main path never launched the kernel")
@@ -1161,7 +1275,7 @@ def main() -> int:
 
     # slice 1: the dense family at full width
     yi = run_model("yi-6b", dev, edit="blocks/wk", batch=4, prompt_len=128,
-                   new_tokens=32)
+                   new_tokens=32, follower="smart")
     fp, fp_launches = yi["kernel"], yi["launches"]
     del yi
     torch.cuda.empty_cache()
@@ -1169,7 +1283,7 @@ def main() -> int:
     # slice 2: the hybrid family at full width; then the two kernels' own
     # entry points on the tensors its prefill computes
     hy = run_model("hymba-1.5b", dev, edit="blocks/ssm/w_x", batch=2,
-                   prompt_len=4096, new_tokens=32)
+                   prompt_len=4096, new_tokens=32, follower="passive")
     cfg = hy["cfg"]
     path = phase_kernel_path(cfg, hy["engine"].params, hy["prompts"], dev)
     full = phase_kernel_full(path["layer0"], cfg)

@@ -29,11 +29,14 @@ joins it. The port's optimizer updates its state in place, so ``save``
 first copies every leaf (on its device, before it returns): the writer
 then reads the state of the step it was given, whatever the trainer does
 next. After each commit, retention (``prune_steps``) drops step tags
-beyond the ``keep`` newest and sweeps the store.
+beyond the ``keep`` newest (a leased tag is skipped) and sweeps the store.
+With ``registry=`` (a ``PassiveRegistry`` or a directory) each commit is
+then published as bundles (the head in full, plus one squashed bundle
+per ``publish_spans`` entry) under a signed index, for followers that
+pull without a live peer.
 
 Not ported yet: ``packed_fingerprints=False`` (the per-leaf dispatch
-baseline) raises; ``publish_spans`` is inert, as in the reference without
-a ``registry=`` (the passive registry comes with the follower).
+baseline) raises.
 """
 from __future__ import annotations
 
@@ -45,9 +48,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import (BuildReport, Instruction, LayerStore, diff_image,
-                    fingerprint_tree_packed, inject_image_multi)
+from ..core import (BuildReport, Instruction, LayerStore, PassiveRegistry,
+                    diff_image, fingerprint_tree_packed, inject_image_multi)
 from ..device import resolve_device
+from ..ft.faults import CrashInjected
 
 
 def flatten_tree(tree, prefix="") -> Dict[str, torch.Tensor]:
@@ -106,13 +110,22 @@ def prune_steps(store: LayerStore, image: str, keep: int) -> bool:
     (ordered by step number; tags that are not canonical step tags are
     never candidates), then mark-and-sweep the store so their exclusive
     blobs and layers are deleted. Returns whether anything was removed.
-    ``keep <= 0`` keeps everything."""
+    ``keep <= 0`` keeps everything.
+
+    Tags under an active retention LEASE (a relay pinning the base a
+    lagging child's delta still negotiates against — see
+    ``LayerStore.acquire_lease``) are skipped, not deleted; the next prune
+    after the lease is released or expires reclaims them."""
     if keep <= 0:
         return False
     steps = sorted((s, t) for t in store.list_tags(image)
                    if (s := step_of_tag(t)) is not None)
     removed = False
     for _, t in steps[:-keep]:
+        # remove_image refuses leased tags on its own; checking here too
+        # keeps the gc() decision honest (a fully-leased prune is a no-op)
+        if store.leased(image, t):
+            continue
         removed = store.remove_image(image, t) or removed
     if removed:
         store.gc()
@@ -132,18 +145,24 @@ class CheckpointPolicy:
     chunk_bytes: int = 1 << 20
     durability: str = "batch"         # per-chunk fsyncs defer to one
                                       # concurrent flush at the commit
-    publish_spans: Tuple[int, ...] = (1, 4, 8)   # inert without a registry
+    # passive-registry publish-on-save policy (active only when the
+    # manager is given a ``registry=``): after each save, advertise a
+    # full head bundle plus one squashed bundle per span, where span k
+    # reaches back k COMMITTED step tags.
+    publish_spans: Tuple[int, ...] = (1, 4, 8)
 
 
 class CheckpointManager:
     """See module docstring. ``image=`` names this manager's image (default
-    ``"ckpt"``)."""
+    ``"ckpt"``); ``registry=`` is the passive bundle registry to publish
+    into after each save (best-effort: an error lands in
+    ``last_publish_error`` and never fails the save)."""
 
     IMAGE = "ckpt"
 
     def __init__(self, root: str, arch: str,
                  policy: Optional[CheckpointPolicy] = None,
-                 image: Optional[str] = None):
+                 image: Optional[str] = None, registry=None):
         self.policy = policy or CheckpointPolicy()
         if not self.policy.packed_fingerprints:
             raise NotImplementedError(
@@ -154,6 +173,13 @@ class CheckpointManager:
                                 durability=self.policy.durability)
         self.image = image or self.IMAGE
         self.arch = arch
+        self.registry = registry if registry is None or \
+            isinstance(registry, PassiveRegistry) \
+            else PassiveRegistry(str(registry))
+        if self.registry is not None:
+            self.registry.attach_gc(self.store, self.image)
+        self.last_publish = None
+        self.last_publish_error: Optional[str] = None
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
         self._last_fps: Dict[str, np.ndarray] = {}
@@ -248,6 +274,7 @@ class CheckpointManager:
                 self._compute_fps(payloads, stats)
             report.bytes_d2h += stats.get("bytes_d2h", 0)
         self._gc()
+        self._publish()
         return report
 
     def _save_incremental(self, step: int,
@@ -272,17 +299,19 @@ class CheckpointManager:
                 self.tag_of(step), diffs,
                 providers={k: (lambda p=v: p) for k, v in payloads.items()},
                 durability=self.policy.durability)
+        except CrashInjected:
+            raise           # simulated SIGKILL: the process is gone, it
+            # cannot fall back to a full rebuild "after" dying
         except Exception:  # noqa: BLE001
             # structure changed ("compiled" case), or any other failure of
-            # the injection -> rebuild fall-back, as the reference does (it
-            # re-raises its simulated crash, CrashInjected, first; the port
-            # has no fault injection yet)
+            # the injection -> rebuild fall-back
             report = self._save_full(step, payloads,
                                      fps=new_fps if new_fps else None)
         report.bytes_d2h += stats.get("bytes_d2h", 0)
         if self.policy.use_fingerprints:
             self._last_fps = new_fps or self._last_fps
         self._gc()
+        self._publish()
         return report
 
     def _gc(self) -> None:
@@ -290,6 +319,35 @@ class CheckpointManager:
         the saving thread, so no batch transaction is open; the store's gc
         spares anything still dirty in one regardless."""
         prune_steps(self.store, self.image, self.policy.keep)
+
+    def _publish(self) -> None:
+        """Advertise the just-committed head in the passive bundle
+        registry (``policy.publish_spans``): a full bundle plus one
+        squashed bundle per span back over the committed step tags.
+        Best-effort by contract — a dead object store must never fail a
+        save, so every error is swallowed into ``last_publish_error``
+        and the next save's publish retries (the index stays
+        stale-but-consistent in the meantime, which followers already
+        treat as a fall-back signal)."""
+        if self.registry is None:
+            return
+        try:
+            steps = sorted(s for t in self.store.list_tags(self.image)
+                           if (s := step_of_tag(t)) is not None)
+            if not steps:
+                return
+            froms = [self.tag_of(steps[-1 - span])
+                     for span in self.policy.publish_spans
+                     if span < len(steps)]
+            self.last_publish = self.registry.publish_image(
+                self.store, self.image, self.tag_of(steps[-1]),
+                from_tags=froms)
+            self.last_publish_error = None
+        except CrashInjected:
+            raise           # the saver process dying is not "a dead
+            # object store" — best-effort must not swallow the crash
+        except Exception as e:  # noqa: BLE001
+            self.last_publish_error = f"{type(e).__name__}: {e}"
 
     # ------------------------------------------------------------ restore
     def restore(self, step: Optional[int] = None, device=None

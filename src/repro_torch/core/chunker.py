@@ -59,6 +59,15 @@ def sha256_hex(data) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
+def hash_pool() -> Optional[ThreadPoolExecutor]:
+    """The shared SHA/transfer executor (None on single-core boxes).
+
+    Shared by chunk hashing and the registry's pipelined blob transfer —
+    tasks submitted here must hash inline (``sha256_hex``), never via
+    ``hash_chunks``, so the pool cannot deadlock on itself."""
+    return _HASH_POOL if _HASH_POOL_WORKERS > 1 else None
+
+
 def hash_chunks(pieces: Sequence) -> List[str]:
     """SHA-256 a batch of bytes-like chunks, fanning out to the shared pool
     when the batch is large enough for the GIL release to pay off."""

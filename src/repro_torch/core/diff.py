@@ -148,6 +148,55 @@ def diff_layer_fingerprint(layer: LayerDescriptor,
     return diff
 
 
+def locate_changed_layers(layers: Sequence[LayerDescriptor],
+                          payloads: Dict[str, Dict[str, torch.Tensor]],
+                          ) -> List[Tuple[LayerDescriptor, LayerDiff]]:
+    """Walk the image's layers 'Dockerfile line by line' (paper §III.A) and
+    return (layer, diff) pairs for every changed content layer — a tuple
+    view over ``diff_image`` (the {layer_id: diff} form injection takes)."""
+    by_id = {layer.layer_id: layer for layer in layers}
+    return [(by_id[lid], d)
+            for lid, d in diff_image(layers, payloads).items()]
+
+
+def diff_manifests(base_layers: Sequence[LayerDescriptor],
+                   new_layers: Sequence[LayerDescriptor],
+                   ) -> Tuple[List[LayerDescriptor], Dict[str, str],
+                              set]:
+    """Metadata-level image delta for replication (core.delta /
+    core.registry): (missing layers, re-key table, new chunk ids) of
+    ``new_layers`` relative to ``base_layers``.
+
+    A new layer whose family has a content-checksum-equal revision in the
+    base is a re-keyed clone (same records, new chain) — its chunks are by
+    definition already present wherever the base is. Everything else is
+    new content; its chunk set minus the base's chunk set is what a
+    DeltaBundle must carry.
+    """
+    base_ids = {layer.layer_id for layer in base_layers}
+    by_family: Dict[Tuple[str, str], str] = {}
+    base_chunks: set = set()
+    for layer in base_layers:
+        by_family.setdefault((layer.family, layer.checksum), layer.layer_id)
+        for rec in layer.records:
+            base_chunks.update(rec.chunks)
+
+    missing: List[LayerDescriptor] = []
+    rekey: Dict[str, str] = {}
+    chunks: set = set()
+    for layer in new_layers:
+        if layer.layer_id in base_ids:
+            continue
+        missing.append(layer)
+        twin = by_family.get((layer.family, layer.checksum))
+        if twin is not None:
+            rekey[layer.layer_id] = twin
+            continue
+        for rec in layer.records:
+            chunks.update(h for h in rec.chunks if h not in base_chunks)
+    return missing, rekey, chunks
+
+
 def diff_tensor_records(old_layers: Sequence[LayerDescriptor],
                         new_layers: Sequence[LayerDescriptor],
                         ) -> Optional[set]:

@@ -85,16 +85,54 @@ def injection_history_entry(per_layer: Dict[str, Dict[str, int]],
     cost what in the batch — the audit trail for the multi-layer
     transactional unit.
 
-    ``delta`` is the commit's replication record: the base tag, the
-    old->new layer maps split by how each layer changed (injected /
-    rederived / rekeyed) and the chunk ids written by this commit, in the
-    format the JAX package's delta registry reads."""
+    ``delta`` is the commit's replication record (see core.delta): the
+    base tag, the old->new layer maps split by how each layer changed
+    (injected / rederived / rekeyed) and the chunk ids written by this
+    commit — what ``history_delta_chain`` and ``registry.squash_deltas``
+    compose without re-diffing the stores."""
     entry = {"instruction": "INJECT", "edits": int(total_edits),
              "per_layer": {lid: dict(entry)
                            for lid, entry in per_layer.items()}}
     if delta is not None:
         entry["delta"] = delta
     return entry
+
+
+def history_delta_chain(config: "ImageConfig", name: str,
+                        from_tag: str) -> Optional[List[dict]]:
+    """The ordered per-commit delta records carrying ``name:from_tag`` to
+    the revision this config locks — the raw material
+    ``registry.squash_deltas`` composes into one static bundle.
+
+    Every batched injection appends a self-describing ``delta`` record
+    (``injection_history_entry(delta=...)``) to the base's cumulative
+    history, so the lineage from ``from_tag`` is exactly the history
+    suffix starting at the LAST entry whose ``delta["base"]`` names
+    ``from_tag`` (later commits re-based on the same tag supersede
+    earlier branches that cannot lead here). Records carry only their
+    BASE tag; each suffix entry's base is the implied result of its
+    predecessor, which is what makes the suffix contiguous by
+    construction. Returns None when the chain cannot be recovered —
+    ``from_tag`` fell off the capped history, a non-injection commit
+    (full rebuild, structure change) sits in the span, or a record in
+    the span has no delta — and the caller must fall back to a
+    store-level re-diff (``registry.diff_manifests``)."""
+    start = None
+    for i, entry in enumerate(config.history):
+        d = entry.get("delta") or {}
+        base = list(d.get("base") or ())
+        if len(base) >= 2 and base[0] == name and base[1] == from_tag:
+            start = i
+    if start is None:
+        return None
+    chain: List[dict] = []
+    for entry in config.history[start:]:
+        d = entry.get("delta")
+        base = list((d or {}).get("base") or ())
+        if not d or len(base) < 2 or base[0] != name:
+            return None
+        chain.append(d)
+    return chain
 
 
 @dataclass

@@ -1,9 +1,13 @@
 """LayerStore — the on-disk content-addressed layer store (torch port of
 the part of ``repro/core/store.py`` that saving, serving and retention
-use: blobs, layers, images and tags, batch durability, ``build_image``
-with the DLC cache rules, payload loading, ``verify_image``, and
-``remove_image`` with the mark-and-sweep ``gc``). The format on disk is
-byte-identical to the JAX package's.
+and replication use: blobs, layers, images and tags, batch durability,
+``build_image`` with the DLC cache rules, payload loading,
+``verify_image``, the cross-image holdings index the delta registry
+negotiates against, retention leases, quarantine, repair pinning, and
+``remove_image`` with the mark-and-sweep ``gc`` and its hooks). The format
+on disk is byte-identical to the JAX package's, quarantine directory
+included; leases and the holdings index live in memory, per store
+instance, as in the reference.
 
 Layout (mirrors /var/lib/docker/overlay2 + image metadata):
 
@@ -11,6 +15,7 @@ Layout (mirrors /var/lib/docker/overlay2 + image metadata):
     <root>/layers/<layer_uuid>.json     LayerDescriptor
     <root>/images/<name>/<tag>.json     Manifest
     <root>/images/<name>/<config>.json  ImageConfig
+    <root>/quarantine/<h>               corrupt blobs moved aside
 
 All metadata writes are atomic (tmp + os.replace) so a crash mid-save never
 leaves a referenced-but-corrupt image — the commit point is the manifest
@@ -47,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..ft.faults import CrashInjected, fault_point
 from .chunker import (DEFAULT_CHUNK_BYTES, TensorRecord, assemble_tensor,
                       chunk_tensor, dtype_str, sha256_hex, shape_of)
 from .fingerprint import fingerprint_tree_packed
@@ -93,6 +99,67 @@ def _fsync_path(path: str) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
+
+
+@dataclass
+class HoldingsIndex:
+    """The store's committed holdings across EVERY image — the cross-image
+    blob universe the delta registry negotiates against (built by
+    ``LayerStore.holdings_index``).
+
+    * ``committed_layers`` — every layer id reachable from ANY committed
+      tag of ANY image. This is the trust boundary: "held" at this store
+      means a member of this set; a descriptor file outside it is an
+      orphan of a crashed push and must never vouch for anything.
+    * ``by_family`` — ``(family, content_checksum) -> layer_id`` over the
+      per-image tag window: the re-key table's lookup side. The twin may
+      live under a DIFFERENT image name than the one being pushed —
+      content-checksum equality over the chunk-hash list is what proves
+      the blobs present, not the image namespace.
+    * ``known_chunks`` — chunk ids referenced by the window-scanned
+      committed layers: membership means present AND verified by the push
+      that committed them, whatever image that was.
+    * ``images`` — the image names scanned (diagnostics / accounting).
+    """
+
+    committed_layers: set = field(default_factory=set)
+    by_family: Dict[Tuple[str, str], str] = field(default_factory=dict)
+    known_chunks: set = field(default_factory=set)
+    images: List[str] = field(default_factory=list)
+
+
+@dataclass
+class _HoldingsAux:
+    """Refcount bookkeeping that makes a cached ``HoldingsIndex``
+    incrementally maintainable (one aux per cached tag window).
+
+    The index's sets are membership views over these counts: a layer id is
+    committed while ``layer_refs > 0`` (summed over every (image, tag)
+    that references it), a chunk is known while ``chunk_refs > 0`` (summed
+    over the *windowed* layers that reference it), and the re-key table
+    maps a ``(family, checksum)`` key to the lexicographically smallest of
+    its live windowed members — so adds and subtracts commute and a
+    remove+gc can never leave the index vouching for a swept blob.
+    ``win_added`` records, per windowed (image, tag), exactly the layer
+    ids whose chunks were indexed (a missing descriptor is skipped at add
+    time, so subtraction must not guess). Any inconsistency — an
+    unreadable descriptor at subtract time, an underflowing count, a tag
+    overwrite — invalidates the whole cache entry and the next
+    ``holdings_index`` call falls back to the full rebuild (the cold-start
+    / repair path).
+    """
+
+    layer_refs: Dict[str, int] = field(default_factory=dict)
+    win_layer_refs: Dict[str, int] = field(default_factory=dict)
+    chunk_refs: Dict[str, int] = field(default_factory=dict)
+    family_members: Dict[Tuple[str, str], set] = field(default_factory=dict)
+    win_tags: Dict[str, List[str]] = field(default_factory=dict)
+    win_added: Dict[Tuple[str, str], List[str]] = field(default_factory=dict)
+
+
+class _HoldingsStale(Exception):
+    """Internal: the incremental holdings update hit a case it cannot
+    apply soundly — drop the cache entry, rebuild lazily."""
 
 
 @dataclass
@@ -162,6 +229,10 @@ class LayerStore:
         # at the next commit instead of trusting bare existence.
         self._durable_paths: set = set()
         self._dirty_lock = threading.Lock()
+        # gc() callbacks for state that references committed tags but lives
+        # OUTSIDE the marked namespace (e.g. a PassiveRegistry's published
+        # bundles) — each returns {stat: count} merged into the gc stats.
+        self._gc_hooks: "list" = []
         # Layer descriptors are immutable once written (every revision gets
         # a fresh layer_id), so parsed descriptors are cached: the
         # incremental save path re-reads every layer of the parent image on
@@ -173,6 +244,36 @@ class LayerStore:
         # change at a manifest commit — cache per image name, invalidated
         # there.
         self._tags_cache: Dict[str, List[str]] = {}
+        # Cross-image holdings index (see holdings_index): rebuilt lazily,
+        # then maintained INCREMENTALLY at the two points that change
+        # committed reachability — write_image applies the new manifest's
+        # layer set, remove_image subtracts it (refcounted via
+        # _HoldingsAux; any case the incremental path cannot apply soundly
+        # drops the entry and the next call rebuilds). Keyed by the tag
+        # window so receivers with different windows never share an entry.
+        self._holdings_cache: Dict[int, "HoldingsIndex"] = {}
+        self._holdings_aux: Dict[int, _HoldingsAux] = {}
+        self._holdings_lock = threading.Lock()
+        # Blob/layer paths pinned by an in-progress RepairSession
+        # (core/registry.py): a quarantined-then-refetched layer descriptor
+        # leaves gc()'s mark phase blind to the blobs it references, so the
+        # session registers every path the damaged image reaches here and
+        # gc's sweep spares them — the same exemption the batch-durability
+        # dirty set gets. Guarded by _dirty_lock (gc snapshots both
+        # together).
+        self._protected_paths: set = set()
+        # Retention leases: (name, tag) -> {owner: expiry (monotonic)}.
+        # A relay fanning a delta to lagging children takes a lease on the
+        # tags whose blobs those children may still need; retention
+        # (remove_image via ckpt.prune_steps) refuses to collect a leased
+        # tag until every lease is released (child committed) or expired
+        # (child died). gc() is lease-safe transitively: it only sweeps
+        # what no tagged manifest reaches, and the leased tag's manifest
+        # stays. In-memory by design — leases protect in-flight fan-outs
+        # of THIS process; a crashed relay's leases die with it, exactly
+        # the expiry semantics a restart wants.
+        self._leases: Dict[Tuple[str, str], Dict[str, float]] = {}
+        self._lease_lock = threading.Lock()
         for sub in ("blobs/sha256", "layers", "images"):
             os.makedirs(os.path.join(root, sub), exist_ok=True)
 
@@ -207,6 +308,53 @@ class LayerStore:
             self.fsyncs += len(batch)
         self._durable_paths.update(files)
 
+    # ---------------------------------------------------------------- leases
+    def acquire_lease(self, name: str, tag: str, owner: str,
+                      ttl_s: float) -> None:
+        """Hold ``name:tag`` against retention for ``ttl_s`` seconds on
+        behalf of ``owner``. Ref-counted by owner; re-acquiring refreshes
+        the expiry (a retried push extends its children's leases)."""
+        with self._lease_lock:
+            self._leases.setdefault((name, tag), {})[owner] = \
+                time.monotonic() + ttl_s
+
+    def release_lease(self, name: Optional[str], owner: str,
+                      tag: Optional[str] = None) -> int:
+        """Release ``owner``'s lease on ``tag`` (or on every tag of
+        ``name`` when tag is None — the child-committed case; or on every
+        tag of EVERY image when name is None too — a relay whose child
+        committed releases the whole cross-image base set it pinned at
+        negotiate). Returns the number of leases released."""
+        n = 0
+        with self._lease_lock:
+            for (nm, tg), owners in list(self._leases.items()):
+                if (name is not None and nm != name) or \
+                        (tag is not None and tg != tag):
+                    continue
+                if owners.pop(owner, None) is not None:
+                    n += 1
+                if not owners:
+                    del self._leases[(nm, tg)]
+        return n
+
+    def lease_holders(self, name: str, tag: str) -> List[str]:
+        """Owners with an unexpired lease on ``name:tag`` (expired entries
+        are purged here — expiry needs no background thread)."""
+        now = time.monotonic()
+        with self._lease_lock:
+            owners = self._leases.get((name, tag))
+            if not owners:
+                return []
+            live = {o: exp for o, exp in owners.items() if exp > now}
+            if live:
+                self._leases[(name, tag)] = live
+            else:
+                del self._leases[(name, tag)]
+            return sorted(live)
+
+    def leased(self, name: str, tag: str) -> bool:
+        return bool(self.lease_holders(name, tag))
+
     # ---------------------------------------------------------------- blobs
     def _blob_path(self, h: str) -> str:
         d = os.path.join(self.root, "blobs", "sha256", h[:2])
@@ -217,6 +365,7 @@ class LayerStore:
 
     def write_blob(self, h: str, data) -> bool:
         """Returns True if a new blob was written (False = dedup hit)."""
+        data = fault_point("store.write_blob", f"{self.root}:{h}", data)
         path = self._blob_path(h)
         if os.path.exists(path):
             if self.durability == "batch" and path not in self._durable_paths:
@@ -233,7 +382,101 @@ class LayerStore:
 
     def read_blob(self, h: str) -> bytes:
         with open(self._blob_path(h), "rb") as f:
-            return f.read()
+            data = f.read()
+        return fault_point("store.read_blob", f"{self.root}:{h}", data)
+
+    def ensure_blob_durable(self, h: str) -> None:
+        """Schedule durability for a blob ADOPTED from disk (an orphan of
+        a crashed push that re-hashed intact). Existence does not prove
+        the bytes ever hit stable storage — the crashed writer may have
+        died before its deferred fsync — so an adopter must re-arm the
+        fsync: inline under durability="full", at the next commit point
+        under "batch". Idempotent and free for already-durable paths."""
+        path = self._blob_path(h)
+        if path in self._durable_paths:
+            return
+        if self.durability == "full":
+            _fsync_path(path)
+            _fsync_path(os.path.dirname(path))
+            self.fsyncs += 2
+            self._durable_paths.add(path)
+        else:
+            with self._dirty_lock:
+                self._dirty_files.add(path)
+                self._dirty_dirs.add(os.path.dirname(path))
+
+    def drop_blob(self, h: str) -> bool:
+        """Delete one blob (caller must know it is unreferenced — e.g. a
+        torn orphan of a crashed push, detected by content-address
+        mismatch). Returns False if it didn't exist."""
+        path = self._blob_path(h)
+        try:
+            os.remove(path)
+        except OSError:
+            return False
+        self._durable_paths.discard(path)
+        with self._dirty_lock:
+            self._dirty_files.discard(path)
+        return True
+
+    # ----------------------------------------------------------- quarantine
+    def _quarantine_path(self, h: str) -> str:
+        return os.path.join(self.root, "quarantine", h)
+
+    def quarantine_blob(self, h: str) -> bool:
+        """Move a corrupt blob out of the content-addressed namespace into
+        ``<root>/quarantine/<h>`` (atomic rename — the bad bytes are
+        preserved for forensics, the address is freed for a verified
+        replacement). Unlike ``drop_blob`` this is safe on a blob that IS
+        still referenced by committed manifests: the image goes from
+        silently-corrupt to visibly-incomplete, which every reader already
+        handles (``missing blob`` from ``verify_image``, ``OSError`` from
+        ``read_blob``) and ``repair_image`` heals. Returns False if the
+        blob didn't exist."""
+        src = self._blob_path(h)
+        dst = self._quarantine_path(h)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        try:
+            os.replace(src, dst)
+        except OSError:
+            return False
+        self._durable_paths.discard(src)
+        with self._dirty_lock:
+            self._dirty_files.discard(src)
+        return True
+
+    def quarantined_blobs(self) -> List[str]:
+        """Content addresses currently held in quarantine."""
+        d = os.path.join(self.root, "quarantine")
+        if not os.path.isdir(d):
+            return []
+        return sorted(fn for fn in os.listdir(d) if _HEX_ID.fullmatch(fn))
+
+    def purge_quarantine(self, h: Optional[str] = None) -> int:
+        """Discard one quarantined blob (or all of them) for good — the
+        operator's explicit override once the bad bytes are no longer
+        interesting. Returns the number removed."""
+        victims = [h] if h is not None else self.quarantined_blobs()
+        n = 0
+        for v in victims:
+            try:
+                os.remove(self._quarantine_path(v))
+                n += 1
+            except OSError:
+                continue
+        return n
+
+    # ------------------------------------------------------ repair pinning
+    def protect_paths(self, paths) -> None:
+        """Pin absolute paths against the ``gc()`` sweep for the duration
+        of a repair (see ``_protected_paths``). Idempotent."""
+        with self._dirty_lock:
+            self._protected_paths.update(paths)
+
+    def unprotect_paths(self, paths) -> None:
+        with self._dirty_lock:
+            self._protected_paths.difference_update(paths)
+
 
     # --------------------------------------------------------------- layers
     def _layer_path(self, layer_id: str) -> str:
@@ -244,9 +487,14 @@ class LayerStore:
             self._layer_cache.pop(next(iter(self._layer_cache)))
         self._layer_cache[layer.layer_id] = layer
 
-    def write_layer(self, layer: LayerDescriptor) -> None:
+    def write_layer(self, layer: LayerDescriptor,
+                    encoded: Optional[bytes] = None) -> None:
+        """``encoded`` lets callers that already serialized the descriptor
+        (e.g. the registry receive path, which counts its wire bytes) skip
+        a second JSON encode — it must be ``dumps(layer.to_json())``."""
         self._write_file(self._layer_path(layer.layer_id),
-                         dumps(layer.to_json()).encode())
+                         encoded if encoded is not None
+                         else dumps(layer.to_json()).encode())
         self._cache_layer(layer)
 
     def read_layer(self, layer_id: str, use_cache: bool = True
@@ -271,6 +519,9 @@ class LayerStore:
 
     def write_image(self, manifest: Manifest, config: ImageConfig) -> None:
         d = self._image_dir(manifest.name)
+        # a crash HERE is the classic torn-commit point: blobs/layers on
+        # disk, manifest absent — the previous tag must stay authoritative
+        fault_point("store.commit", self.root)
         # Commit point: flush any deferred (durability="batch") blob/layer
         # writes before the manifest becomes visible, then write config +
         # manifest fully synced regardless of durability mode.
@@ -283,6 +534,7 @@ class LayerStore:
         self.fsyncs += 2
         self.commits += 1
         self._tags_cache.pop(manifest.name, None)
+        self._holdings_apply_commit(manifest)
 
     def read_image(self, name: str, tag: str) -> Tuple[Manifest, ImageConfig]:
         d = self._image_dir(name)
@@ -320,17 +572,207 @@ class LayerStore:
         return sorted(n for n in os.listdir(d)
                       if os.path.isdir(os.path.join(d, n)))
 
-    def remove_image(self, name: str, tag: str) -> bool:
-        """Unlink a tag's manifest (its layers and blobs become gc fodder;
-        run ``gc()`` to reclaim them). Returns False if the tag did not
-        exist. The reference also refuses a tag under a retention lease;
-        leases come with the store's relay and repair paths, which are not
-        ported yet, so no tag is leased here."""
+    def holdings_index(self, tag_window: int = 8,
+                       fresh: bool = False) -> HoldingsIndex:
+        """Index this store's committed holdings across EVERY image (see
+        ``HoldingsIndex``) — what ``DeltaReceiver.negotiate``/``commit``
+        vouch from, so a blob committed under ``base`` answers the probe
+        for a push of ``tenant3``.
+
+        ``committed_layers`` covers every tag of every image — an id
+        referenced only by an old tag of a sibling image must still be
+        protected from in-place overwrite. Only the descriptor-READING
+        work (the family/re-key index and ``known_chunks``) is bounded to
+        the ``tag_window`` newest tags *per image*: missing a match there
+        only costs extra deep verification or a resent blob, never
+        correctness. Cached per window; invalidated by this instance's own
+        ``write_image``/``remove_image`` (``fresh=True`` bypasses — needed
+        only when ANOTHER process commits into the same root)."""
+        if not fresh:
+            with self._holdings_lock:
+                cached = self._holdings_cache.get(tag_window)
+            if cached is not None:
+                return cached
+        idx, aux = HoldingsIndex(), _HoldingsAux()
+        for name in self.list_images():
+            tags = self.list_tags(name)
+            if tags:        # a fully-untagged image holds nothing
+                idx.images.append(name)
+            stags = sorted(tags, reverse=True)
+            if stags:
+                aux.win_tags[name] = list(stags)
+            for i, tag in enumerate(stags):
+                try:
+                    m, _ = self.read_image(name, tag)
+                except (OSError, ValueError, KeyError):
+                    continue
+                for lid in m.layer_ids:
+                    aux.layer_refs[lid] = aux.layer_refs.get(lid, 0) + 1
+                idx.committed_layers.update(m.layer_ids)
+                if i >= tag_window:
+                    continue
+                self._win_add_manifest(idx, aux, name, tag, m)
+        with self._holdings_lock:
+            self._holdings_cache[tag_window] = idx
+            self._holdings_aux[tag_window] = aux
+        return idx
+
+    # -------------------------------------- incremental holdings maintenance
+    def _win_add_manifest(self, idx: HoldingsIndex, aux: _HoldingsAux,
+                          name: str, tag: str, m: Manifest) -> None:
+        """Index a manifest's layers into the windowed (family / chunk)
+        side of the holdings, recording exactly what was added so a later
+        window eviction can subtract it. Shared by the full rebuild and
+        the incremental write_image path — equivalence by construction."""
+        added: List[str] = []
+        for lid in m.layer_ids:
+            if not self.has_layer(lid):
+                continue
+            layer = self.read_layer(lid)
+            added.append(lid)
+            n = aux.win_layer_refs.get(lid, 0)
+            aux.win_layer_refs[lid] = n + 1
+            if n:
+                continue
+            key = (layer.family, layer.checksum)
+            members = aux.family_members.setdefault(key, set())
+            members.add(lid)
+            idx.by_family[key] = min(members)
+            for rec in layer.records:
+                for h in rec.chunks:
+                    c = aux.chunk_refs.get(h, 0)
+                    aux.chunk_refs[h] = c + 1
+                    if not c:
+                        idx.known_chunks.add(h)
+        aux.win_added[(name, tag)] = added
+
+    def _win_sub_tag(self, idx: HoldingsIndex, aux: _HoldingsAux,
+                     name: str, tag: str) -> None:
+        """Subtract a tag evicted from the window: exactly the layers
+        ``_win_add_manifest`` recorded for it, refcounted down."""
+        for lid in aux.win_added.pop((name, tag), []):
+            n = aux.win_layer_refs.get(lid, 0) - 1
+            if n < 0:
+                raise _HoldingsStale
+            if n:
+                aux.win_layer_refs[lid] = n
+                continue
+            del aux.win_layer_refs[lid]
+            layer = self.read_layer(lid)    # unreadable -> stale -> rebuild
+            key = (layer.family, layer.checksum)
+            members = aux.family_members.get(key, set())
+            members.discard(lid)
+            if members:
+                idx.by_family[key] = min(members)
+            else:
+                aux.family_members.pop(key, None)
+                idx.by_family.pop(key, None)
+            for rec in layer.records:
+                for h in rec.chunks:
+                    c = aux.chunk_refs.get(h, 0) - 1
+                    if c < 0:
+                        raise _HoldingsStale
+                    if c:
+                        aux.chunk_refs[h] = c
+                    else:
+                        del aux.chunk_refs[h]
+                        idx.known_chunks.discard(h)
+
+    def _holdings_apply_commit(self, manifest: Manifest) -> None:
+        """write_image hook: fold the committed manifest into every cached
+        window instead of invalidating wholesale (the ROADMAP incremental-
+        maintenance item). Unsound cases degrade to invalidation."""
+        name, tag = manifest.name, manifest.tag
+        with self._holdings_lock:
+            for window in list(self._holdings_cache):
+                idx = self._holdings_cache[window]
+                aux = self._holdings_aux.get(window)
+                try:
+                    if aux is None:
+                        raise _HoldingsStale
+                    tags = aux.win_tags.setdefault(name, [])
+                    if tag in tags:     # tag overwrite: old layer set gone
+                        raise _HoldingsStale
+                    for lid in manifest.layer_ids:
+                        aux.layer_refs[lid] = \
+                            aux.layer_refs.get(lid, 0) + 1
+                    idx.committed_layers.update(manifest.layer_ids)
+                    if name not in idx.images:
+                        idx.images.append(name)
+                        idx.images.sort()
+                    old_win = tags[:window]
+                    tags.append(tag)
+                    tags.sort(reverse=True)
+                    new_win = tags[:window]
+                    for t in old_win:               # at most one eviction
+                        if t not in new_win:
+                            self._win_sub_tag(idx, aux, name, t)
+                    if tag in new_win:
+                        self._win_add_manifest(idx, aux, name, tag,
+                                               manifest)
+                except (_HoldingsStale, OSError, ValueError, KeyError):
+                    self._holdings_cache.pop(window, None)
+                    self._holdings_aux.pop(window, None)
+
+    def _holdings_apply_remove(self, name: str, tag: str,
+                               manifest: Optional[Manifest]) -> None:
+        """remove_image hook: subtract the removed tag's layer set from
+        every cached window (manifest was read before the unlink; None
+        means it was unreadable — invalidate)."""
+        with self._holdings_lock:
+            for window in list(self._holdings_cache):
+                idx = self._holdings_cache[window]
+                aux = self._holdings_aux.get(window)
+                try:
+                    if aux is None or manifest is None:
+                        raise _HoldingsStale
+                    tags = aux.win_tags.get(name, [])
+                    if tag not in tags:
+                        raise _HoldingsStale
+                    old_win = tags[:window]
+                    tags.remove(tag)
+                    new_win = tags[:window]
+                    for lid in manifest.layer_ids:
+                        n = aux.layer_refs.get(lid, 0) - 1
+                        if n < 0:
+                            raise _HoldingsStale
+                        if n:
+                            aux.layer_refs[lid] = n
+                        else:
+                            aux.layer_refs.pop(lid, None)
+                            idx.committed_layers.discard(lid)
+                    if tag in old_win:
+                        self._win_sub_tag(idx, aux, name, tag)
+                    for t in new_win:               # at most one promotion
+                        if t not in old_win:
+                            m2, _ = self.read_image(name, t)
+                            self._win_add_manifest(idx, aux, name, t, m2)
+                    if not tags:
+                        aux.win_tags.pop(name, None)
+                        if name in idx.images:
+                            idx.images.remove(name)
+                except (_HoldingsStale, OSError, ValueError, KeyError):
+                    self._holdings_cache.pop(window, None)
+                    self._holdings_aux.pop(window, None)
+
+    def remove_image(self, name: str, tag: str, force: bool = False) -> bool:
+        """Unlink a tag's manifest (layers/blobs become GC fodder; run
+        ``gc()`` to reclaim them). Returns False if the tag didn't exist —
+        or if an unexpired retention lease holds it (a relay's lagging
+        child still needs its blobs; ``force=True`` overrides, for callers
+        that know the children are gone for good)."""
+        if not force and self.leased(name, tag):
+            return False
+        try:                # read BEFORE unlink: the incremental holdings
+            manifest, _ = self.read_image(name, tag)   # subtraction needs
+        except (OSError, ValueError, KeyError):        # the layer set
+            manifest = None
         try:
             os.remove(os.path.join(self.root, "images", name, f"{tag}.json"))
         except OSError:
             return False
         self._tags_cache.pop(name, None)
+        self._holdings_apply_remove(name, tag, manifest)
         return True
 
     # ------------------------------------------------------------ build API
@@ -557,15 +999,27 @@ class LayerStore:
         return out
 
     # ------------------------------------------------------------------- GC
+    def add_gc_hook(self, hook) -> None:
+        """Register ``hook(store) -> {stat: count}`` to run at the end of
+        every ``gc()`` — retention awareness for satellites that
+        advertise committed tags (``PassiveRegistry.attach_gc`` prunes
+        published bundles whose endpoint tags were swept). A hook that
+        raises is skipped, never fails the sweep."""
+        self._gc_hooks.append(hook)
+
     def gc(self) -> Dict[str, int]:
         """Mark-and-sweep of unreferenced blobs, layer descriptors and
         config blobs across the whole image namespace: the roots are every
         committed tag of every image, so a blob that another image still
         reaches survives. The sweep spares the files of an open batch
         transaction (written, not yet flushed at a commit): an in-flight
-        save's blobs are never deleted out from under its manifest. Must
-        not run beside a ``durability="full"`` writer, whose pre-commit
-        files are not tracked."""
+        save's blobs are never deleted out from under its manifest, and
+        neither are the paths an in-progress repair pinned
+        (``protect_paths``). Retention leases pin transitively: a leased
+        tag's manifest cannot be removed, so it stays a root. Registered
+        hooks (``add_gc_hook``) run last. Must not run beside a
+        ``durability="full"`` writer, whose pre-commit files are not
+        tracked."""
         marked_blobs: set = set()
         marked_layers: set = set()
         marked_configs: set = set()
@@ -588,7 +1042,9 @@ class LayerStore:
                         marked_blobs.update(rec.chunks)
 
         with self._dirty_lock:
-            protected = set(self._dirty_files)
+            # exemptions: the open batch transaction's dirty files AND any
+            # path pinned by an in-progress RepairSession (protect_paths)
+            protected = set(self._dirty_files) | set(self._protected_paths)
         stats = {"layers_swept": 0, "blobs_swept": 0, "bytes_swept": 0,
                  "configs_swept": 0}
 
@@ -645,6 +1101,16 @@ class LayerStore:
                 except OSError:
                     continue
                 stats["configs_swept"] += 1
+        for hook in list(self._gc_hooks):
+            try:
+                extra = hook(self) or {}
+            except CrashInjected:
+                raise           # a simulated SIGKILL inside a hook is the
+                # sweeping process dying, not "a broken hook"
+            except Exception:  # noqa: BLE001
+                continue        # a broken hook must never break the sweep
+            for k, v in extra.items():
+                stats[k] = stats.get(k, 0) + int(v)
         return stats
 
     # ---------------------------------------------------------- verification

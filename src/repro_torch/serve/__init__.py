@@ -1,5 +1,7 @@
-from .engine import (Engine, EngineHealth, GenerationResult,
-                     changed_tensor_paths)
+from .engine import (CheckpointFollower, Engine, EngineHealth,
+                     FollowerHealth, GenerationResult, PassivePullStats,
+                     SparseUpdate, changed_tensor_paths)
 
-__all__ = ["Engine", "EngineHealth", "GenerationResult",
+__all__ = ["CheckpointFollower", "Engine", "EngineHealth", "FollowerHealth",
+           "GenerationResult", "PassivePullStats", "SparseUpdate",
            "changed_tensor_paths"]

@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch``, nor ``chip_smoke.py``
 nor ``examples/quickstart_torch.py``, imports the JAX package, JAX or
-ml_dtypes; the serving slice and the training quickstart run in a process
-where those cannot be imported; and the port's entry points refuse to drop
-to the CPU when no card is present and none was asked for."""
+ml_dtypes; the serving slice, the follower and the training quickstart run
+in a process where those cannot be imported; and the port's entry points
+refuse to drop to the CPU when no card is present and none was asked
+for."""
 import ast
 import os
 import subprocess
@@ -88,6 +89,49 @@ def test_slice_runs_with_jax_and_repro_unimportable():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "slice-ok (2, 4)" in proc.stdout
+
+
+_BLOCKED_FOLLOWER = r"""
+import sys
+for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None
+import tempfile
+import numpy as np
+import torch
+from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import init_params
+from repro_torch.serve import CheckpointFollower, Engine
+cfg = get_smoke_config("yi-6b")
+params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+root = tempfile.mkdtemp()
+mgr = CheckpointManager(root + "/train", cfg.name, CheckpointPolicy(
+    use_fingerprints=True, chunk_bytes=4096, async_write=False),
+    registry=root + "/registry")
+mgr.save(0, params, {})
+smart = CheckpointFollower(remote=root + "/train", local=root + "/replica")
+passive = CheckpointFollower(remote=None, registry=root + "/registry",
+                             local=root + "/edge")
+eng = Engine(cfg, smart.poll().params, device="cpu")
+assert passive.poll().step == 0 and passive.last_plan.negotiations == 0
+params["final_norm"] = params["final_norm"] * 2
+mgr.save(1, params, {})
+upd = smart.poll_and_refresh(eng)
+assert upd.changed_params == {"final_norm"} and eng.last_refresh_leaves == 1
+assert passive.poll().changed_params == {"final_norm"}
+res = eng.generate(np.ones((2, 8), np.int32), 4)
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("follower-ok", res.tokens.shape)
+"""
+
+
+def test_follower_polls_with_jax_and_repro_unimportable():
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_FOLLOWER], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "follower-ok (2, 4)" in proc.stdout
 
 
 _BLOCKED_QUICKSTART = r"""

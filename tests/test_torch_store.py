@@ -6,6 +6,7 @@ package restores the other's checkpoints bit for bit.
 
 Layer ids and config ids are fresh UUIDs, so they are never compared.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -335,3 +336,171 @@ def test_port_reads_records_without_fingerprints(tmp_path):
         {"data": lambda: tpay}, parent=("app", "v1"))
     assert rep.layers_built == 0 and rep.layers_cached == 2
     assert rep.bytes_hashed == 3000 * 4 and rep.chunks_prefiltered == 0
+
+
+# ---------------------------------------------------------------------------
+# the parts of the store that replication uses, against the JAX store
+
+def _two_stores(saved, tmp_path):
+    """Copies of the saved JAX store: one opened by each package."""
+    import shutil
+    from repro.core import LayerStore as JStore
+    from repro_torch.core import LayerStore
+    root = saved[0]
+    shutil.copytree(root / "jax", tmp_path / "j")
+    shutil.copytree(root / "jax", tmp_path / "t")
+    return (JStore(str(tmp_path / "j"), chunk_bytes=CHUNK),
+            LayerStore(str(tmp_path / "t"), chunk_bytes=CHUNK))
+
+
+def _tree(root):
+    out = {}
+    for d, _, files in os.walk(root):
+        for fn in files:
+            with open(os.path.join(d, fn), "rb") as f:
+                out[os.path.relpath(os.path.join(d, fn), root)] = f.read()
+    return out
+
+
+def test_leases_hold_a_tag_against_removal_as_the_reference(saved, tmp_path):
+    results = []
+    for st in _two_stores(saved, tmp_path):
+        st.acquire_lease("ckpt", "step-00000000", "a", ttl_s=600.0)
+        st.acquire_lease("ckpt", "step-00000000", "b", ttl_s=600.0)
+        st.acquire_lease("ckpt", "step-00000001", "gone", ttl_s=-1.0)
+        row = [st.lease_holders("ckpt", "step-00000000"),
+               st.leased("ckpt", "step-00000001"),
+               st.remove_image("ckpt", "step-00000000"),
+               st.release_lease("ckpt", "a", tag="step-00000000"),
+               st.remove_image("ckpt", "step-00000000"),
+               st.release_lease(None, "b"),
+               st.leased("ckpt", "step-00000000")]
+        st.acquire_lease("ckpt", "step-00000001", "c", ttl_s=600.0)
+        row += [st.remove_image("ckpt", "step-00000001", force=True),
+                st.list_tags("ckpt")]
+        results.append(row)
+    assert results[1] == results[0]
+    assert results[1] == [["a", "b"], False, False, 1, False, 1, False,
+                          True, ["step-00000000"]]
+
+
+def test_quarantine_layout_is_the_references(saved, tmp_path):
+    js, ts = _two_stores(saved, tmp_path)
+    manifest, _ = ts.read_image("ckpt", "step-00000001")
+    h = next(r.chunks[0] for lid in manifest.layer_ids
+             for r in ts.read_layer(lid).records)
+    for st in (js, ts):
+        assert st.quarantine_blob(h) is True
+        assert st.quarantine_blob(h) is False
+        assert st.quarantined_blobs() == [h]
+        assert any("missing blob" in p for p in
+                   st.verify_image("ckpt", "step-00000001", deep=True))
+    assert _tree(ts.root) == _tree(js.root)
+    from repro.core import LayerStore as JStore
+    assert JStore(ts.root).quarantined_blobs() == [h]
+    for st in (js, ts):
+        assert st.purge_quarantine() == 1 and st.quarantined_blobs() == []
+    assert _tree(ts.root) == _tree(js.root)
+
+
+def test_drop_and_adopt_blobs_as_the_reference(saved, tmp_path):
+    js, ts = _two_stores(saved, tmp_path)
+    manifest, _ = ts.read_image("ckpt", "step-00000000")
+    hs = sorted({h for lid in manifest.layer_ids
+                 for r in ts.read_layer(lid).records for h in r.chunks})[:3]
+    out = []
+    for st in (js, ts):
+        st.ensure_blob_durable(hs[0])
+        row = [st.drop_blob(hs[1]), st.drop_blob(hs[1]), st.has_blob(hs[1])]
+        st.sync_for_commit()
+        out.append(row + [st.fsyncs])
+    assert out[1] == out[0] == [True, False, False, 2]
+
+
+def test_holdings_index_matches_jax_through_commits_and_removals(
+        saved, tmp_path):
+    """The index is built once, then kept up to date at each commit and
+    removal; after each, both packages' cached indexes equal a fresh
+    rebuild and each other."""
+    from repro.core import LayerStore as JStore
+    from repro_torch.core import LayerStore
+    js, ts = _two_stores(saved, tmp_path)
+    views = []
+    for st, other in ((js, JStore), (ts, LayerStore)):
+        got = []
+        for window in (1, 8):
+            got.append(dataclasses.asdict(st.holdings_index(window)))
+        m, c = st.read_image("ckpt", "step-00000001")
+        st.write_image(dataclasses.replace(m, name="tenant", tag="v1"), c)
+        got.append(dataclasses.asdict(st.holdings_index(1)))
+        assert st.remove_image("ckpt", "step-00000001")
+        for window in (1, 8):
+            idx = dataclasses.asdict(st.holdings_index(window))
+            fresh = other(st.root, chunk_bytes=CHUNK).holdings_index(window)
+            assert idx == dataclasses.asdict(fresh)
+            got.append(idx)
+        views.append(got)
+    assert views[1] == views[0]
+    assert views[1][-1]["images"] == ["ckpt", "tenant"]
+
+
+def test_gc_runs_hooks_and_spares_protected_paths(saved, tmp_path):
+    from repro_torch.ft import CrashInjected
+    js, ts = _two_stores(saved, tmp_path)
+    manifest, _ = ts.read_image("ckpt", "step-00000000")
+    only0 = set()
+    for lid in manifest.layer_ids:
+        for r in ts.read_layer(lid).records:
+            only0.update(r.chunks)
+    m1, _ = ts.read_image("ckpt", "step-00000001")
+    for lid in m1.layer_ids:
+        for r in ts.read_layer(lid).records:
+            only0.difference_update(r.chunks)
+    keep = sorted(only0)[0]
+    stats = []
+    for st in (js, ts):
+        calls = []
+        st.add_gc_hook(lambda s: calls.append(s) or {"bundles_pruned": 2})
+        st.add_gc_hook(lambda s: 1 / 0)          # a broken hook is skipped
+        st.protect_paths([st._blob_path(keep)])
+        assert st.remove_image("ckpt", "step-00000000")
+        stats.append(st.gc())
+        assert calls == [st] and st.has_blob(keep)
+        st.unprotect_paths([st._blob_path(keep)])
+        assert st.gc()["blobs_swept"] == 1 and not st.has_blob(keep)
+    assert stats[1] == stats[0] and stats[1]["bundles_pruned"] == 2
+
+    def crash(s):
+        raise CrashInjected("the sweeping process died")
+    ts.add_gc_hook(crash)
+    with pytest.raises(CrashInjected):
+        ts.gc()
+
+
+def test_store_fault_points_fire_as_the_references(saved, tmp_path):
+    import repro.ft as JF
+    import repro_torch.ft as TF
+    js, ts = _two_stores(saved, tmp_path)
+    h = "ab" * 32
+    seen = []
+    for st, F in ((js, JF), (ts, TF)):
+        with F.inject(0, F.FaultSpec("store.write_blob", "bitrot")) as inj:
+            st.write_blob(h, b"payload-bytes")
+        with open(st._blob_path(h), "rb") as f:
+            persisted = f.read()
+        with F.inject(0, F.FaultSpec("store.read_blob", "corrupt")):
+            read = st.read_blob(h)
+        with F.inject(0, F.FaultSpec("store.commit", "crash")):
+            m, c = st.read_image("ckpt", "step-00000001")
+            with pytest.raises(F.CrashInjected):
+                st.write_image(dataclasses.replace(m, tag="next"), c)
+        # which byte flips is drawn from the key, which holds the root:
+        # count the flipped bytes, persisted and then on the read
+        flips = [sum(x != y for x, y in zip(a, b)) for a, b in
+                 ((persisted, b"payload-bytes"), (read, persisted))]
+        seen.append((flips, st.list_tags("ckpt", fresh=True),
+                     [(e.point, e.key.replace(st.root, "<root>"), e.mode)
+                      for e in inj.log]))
+    assert seen[1] == seen[0]
+    assert seen[1][0] == [1, 1]
+    assert seen[1][1] == ["step-00000000", "step-00000001"]
