@@ -33,6 +33,21 @@ and f32) and mamba2-130m's scan shape. The SSD scan runs as three CUDA
 kernels a call (chunk state, state passing, chunk scan); its launches
 count calls, and each of the three CUDA kernels is counted as well.
 
+The store's remaining surface rides the same two serving paths. On
+yi-6b's tree, ``fp_per_leaf`` runs the per-leaf fingerprint baseline
+(``fingerprint_tree``: one launch per leaf) against the packed table.
+After yi-6b's repair, ``tenants`` forks three tenant images from the
+trainer's step 0 into its store (``CheckpointManager(store=,
+base_image=)``, the deltas of ``examples/serve_multitenant.py``), with the
+base's layer ids reused as the DLC rules say, and one tenant saved
+incrementally through the per-leaf path; ``replicate`` fans each tenant to
+the follower's replica and to a second replica seeded with the base, which
+must receive only the chunks they lack, and serves two tenants restored
+from the second replica. After hymba's passive refresh, ``scrub`` scrubs
+the follower's replica whole and in 256 MiB slices, finds exactly one
+blob rotted at rest with its attribution, heals it with ``repair_image``
+from the trainer's store and serves the healed head.
+
 Last, the training half of the main path (phase ``train``): full-width
 yi-6b with its depth cut to ``TRAIN_LAYERS`` trains through
 ``make_train_step``, is saved in full with its optimizer state, trains on,
@@ -249,6 +264,43 @@ def phase_fingerprint_full(payload_union, chunk_bytes,
            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
            "tree_bytes": in_bytes, "rows": rows, "lanes": lanes}
     log(phase, **res)
+    return res
+
+
+def phase_fp_per_leaf(union, chunk_bytes) -> dict:
+    """The per-leaf fingerprint baseline (``packed_fingerprints=False``) on
+    the main path's tree: one kernel launch and one D2H copy per leaf,
+    bit-equal to the packed table and to the plain version."""
+    from repro_torch.core import (fingerprint_tree, fingerprint_tree_packed,
+                                  tree_pack_index)
+    from repro_torch.core.chunker import dtype_str, shape_of
+    from repro_torch.core.fingerprint import chunk_geometry
+    from repro_torch.kernels.fingerprint.ops import fingerprint_leaves
+    from repro_torch.kernels.fingerprint.ref import fingerprint_rows_plain
+    dev = next((t.device for t in union.values() if t.is_cuda),
+               torch.device("cpu"))
+    fingerprint_leaves.launches = 0
+    per_leaf = fingerprint_tree(union, chunk_bytes)
+    launches = fingerprint_leaves.launches
+    packed = fingerprint_tree_packed(union, chunk_bytes)
+    leaves = [t.to(dev).contiguous() for t in union.values()]
+    plain = fingerprint_rows_plain(
+        leaves, [chunk_geometry(shape_of(t), dtype_str(t), chunk_bytes)
+                 for t in leaves]).cpu().numpy()
+    index, _, _ = tree_pack_index(union, chunk_bytes)
+    check(launches == len(union),
+          f"per-leaf fingerprints made {launches} launches for "
+          f"{len(union)} leaves")
+    check(all(np.array_equal(per_leaf[n], packed[n])
+              and np.array_equal(per_leaf[n], plain[off:off + k])
+              for n, off, k in index),
+          "per-leaf fingerprints != packed / plain")
+    res = {"leaves": len(union), "launches": launches, "bit_exact": True,
+           "per_leaf_ms": _host_ms(
+               lambda: fingerprint_tree(union, chunk_bytes), 3, dev),
+           "packed_ms": _host_ms(
+               lambda: fingerprint_tree_packed(union, chunk_bytes), 3, dev)}
+    log("fp_per_leaf", **res)
     return res
 
 
@@ -770,6 +822,8 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
         _, total_chunks, _ = tree_pack_index(union, chunk_bytes)
         if dev.type == "cuda":
             out["kernel"] = phase_fingerprint_full(union, chunk_bytes)
+            if smart:
+                out["fp_per_leaf"] = phase_fp_per_leaf(union, chunk_bytes)
 
         # ---- the main path: launches are counted from here to the refresh
         fingerprint_leaves.launches = 0
@@ -904,6 +958,11 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
         if smart:
             out["repair"] = _verify_and_repair(cfg, mgr, fol, eng, params,
                                                edit, prompts, new_tokens, res)
+            out.update(_tenants_and_replicate(cfg, mgr, fol, params, dev,
+                                              prompts, new_tokens))
+        else:
+            out["scrub"] = _scrub_and_heal(cfg, mgr, fol, dev, prompts,
+                                           new_tokens, res_ref.tokens)
 
         with torch.inference_mode():
             toks = torch.as_tensor(prompts, device=dev).long()
@@ -961,6 +1020,266 @@ def _verify_and_repair(cfg, mgr, fol, eng, params, edit, prompts,
                bytes_payload=fol.last_pull.bytes_payload, tokens_equal=True)
     log("repair", **out)
     return out
+
+
+# the tenants of examples/serve_multitenant.py: (edited leaf, edit)
+TENANT_DELTAS = (
+    ("final_norm", lambda p: p["final_norm"] * 2.0),
+    ("embed", lambda p: p["embed"] + 0.5 * torch.sign(p["embed"])),
+    ("final_norm", lambda p: p["final_norm"] * 0.5),
+)
+
+
+def _store_blobs(store) -> dict:
+    """{content address: payload bytes} of every blob file on disk."""
+    out = {}
+    for d, _, files in os.walk(os.path.join(store.root, "blobs", "sha256")):
+        for fn in files:
+            out[fn] = os.path.getsize(os.path.join(d, fn))
+    return out
+
+
+def _layer_chunks(store, lid: str) -> set:
+    return {h for r in store.read_layer(lid).records for h in r.chunks}
+
+
+def _tenants_and_replicate(cfg, mgr, fol, params, dev, prompts,
+                           new_tokens) -> dict:
+    """Phases ``tenants`` and ``replicate`` on the trainer's store.
+
+    Three tenant managers share the trainer's store and fork their first
+    save from its step 0 (``base_image=``), with the edits of
+    ``TENANT_DELTAS`` made on the card. A ``final_norm`` tenant reuses the
+    base's FROM, embed and blocks layers by id; the ``embed`` tenant misses
+    at embed, so by the DLC fall-through rule its blocks layer is rebuilt
+    under a new id from chunks the store already holds (no new blob). The
+    third tenant saves once more, incrementally, through the per-leaf
+    fingerprints (one launch per leaf). Then ``replicate`` fans each
+    tenant's step 0 to the follower's replica and to a second replica
+    seeded with the base: one negotiation round a fan, and each replica
+    receives exactly the payload of the tenant's chunks it lacks. Two
+    tenants restored from the second replica give a direct engine's
+    tokens."""
+    from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
+    from repro_torch.core import LayerStore, push_delta
+    from repro_torch.kernels.fingerprint.ops import fingerprint_leaves
+    from repro_torch.serve import Engine
+
+    store, cb = mgr.store, mgr.store.chunk_bytes
+    base = (mgr.image, mgr.tag_of(0))
+    base_m, _ = store.read_image(*base)
+    base_chunks = _blob_set(store, *base)
+    tenants, logs = [], []
+    fingerprint_leaves.launches = 0
+    for i, (leaf, fn) in enumerate(TENANT_DELTAS, start=1):
+        variant = dict(params)
+        variant[leaf] = fn(params)
+        policy = CheckpointPolicy(use_fingerprints=True, chunk_bytes=cb,
+                                  async_write=False,
+                                  packed_fingerprints=i != 3)
+        tm = CheckpointManager("", cfg.name, policy, image=f"tenant{i}",
+                               base_image=base, store=store)
+        before, n0 = _store_blobs(store), fingerprint_leaves.launches
+        t0 = time.perf_counter()
+        rep = tm.save(0, variant, {})
+        seconds = time.perf_counter() - t0
+        after = _store_blobs(store)
+        new = set(after) - set(before)
+        m, _ = store.read_image(tm.image, tm.tag_of(0))
+        edited = 1 if leaf == "embed" else 3      # the layer the edit is in
+        reused = [a == b for a, b in zip(m.layer_ids, base_m.layer_ids)]
+        check(reused == [True] * edited + [False] * (6 - edited)
+              and rep.layers_cached == edited,
+              f"tenant{i}: layers reused {reused}, cached "
+              f"{rep.layers_cached}")
+        check(new and new <= _layer_chunks(store, m.layer_ids[edited]),
+              f"tenant{i}: new blobs outside its edited layer")
+        blocks_new = _layer_chunks(store, m.layer_ids[2]) & new
+        check(not blocks_new, f"tenant{i}: the blocks layer added blobs")
+        row = dict(tenant=f"tenant{i}", edit=leaf, seconds=seconds,
+                   layers_cached=rep.layers_cached,
+                   layers_built=rep.layers_built,
+                   blocks_rebuilt=not reused[2],
+                   blocks_new_blobs=len(blocks_new),
+                   blobs_added=len(new),
+                   bytes_added=sum(after[h] for h in new),
+                   chunks_written=rep.chunks_written,
+                   fp_launches=fingerprint_leaves.launches - n0,
+                   packed_fingerprints=policy.packed_fingerprints)
+        logs.append(row)
+        log("tenants", **row)
+        tenants.append((tm, variant))
+
+    # a second, incremental save of the per-leaf tenant
+    tm, variant = tenants[2]
+    variant1 = dict(variant, final_norm=variant["final_norm"] * 0.25)
+    n_leaves = sum(len(t) for t in tm._payloads(variant1, {}, 1).values())
+    n0 = fingerprint_leaves.launches
+    t0 = time.perf_counter()
+    r1 = tm.save(1, variant1, {})
+    inc = dict(seconds=time.perf_counter() - t0,
+               fp_launches=fingerprint_leaves.launches - n0, leaves=n_leaves,
+               bytes_d2h=r1.bytes_d2h, chunks_written=r1.chunks_written,
+               layers_injected=r1.layers_injected)
+    check(inc["fp_launches"] == n_leaves,
+          f"per-leaf incremental save: {inc['fp_launches']} launches for "
+          f"{n_leaves} leaves")
+    check(r1.layers_built == 0 and r1.layers_injected >= 1,
+          "the per-leaf incremental save did not inject")
+    log("tenants", incremental_per_leaf=inc)
+    tenant_launches = fingerprint_leaves.launches
+
+    # ---- replicate: the follower's replica, and one seeded with the base
+    fingerprint_leaves.launches = 0
+    replica, rep2_dir = fol.local, tempfile.mkdtemp(prefix="chip_smoke_r2_")
+    out = {}
+    try:
+        replica2 = LayerStore(rep2_dir, chunk_bytes=cb)
+        t0 = time.perf_counter()
+        seed = push_delta(store, replica2, *base)
+        log("replicate", seed_seconds=time.perf_counter() - t0,
+            seed_blobs=seed.blobs_sent, seed_bytes=seed.bytes_sent)
+        fans = []
+        for tm, _ in tenants:
+            chunks = _blob_set(store, tm.image, tm.tag_of(0))
+            sizes = {h: os.path.getsize(store._blob_path(h)) for h in chunks}
+            lack = [sum(sizes[h] for h in chunks if not r.has_blob(h))
+                    for r in (replica, replica2)]
+            t0 = time.perf_counter()
+            fan = tm.replicate(remote=[replica, replica2], step=0)
+            seconds = time.perf_counter() - t0
+            check(fan.ok and fan.negotiation_rounds == 1,
+                  f"{tm.image}: fan ok={fan.ok} rounds="
+                  f"{fan.negotiation_rounds}")
+            paid = [r.stats.bytes_payload for r in fan.replicas]
+            check(paid == lack, f"{tm.image}: payload {paid} != the bytes "
+                  f"each replica lacked {lack}")
+            check(lack[1] == sum(sizes[h] for h in chunks - base_chunks),
+                  f"{tm.image}: the seeded replica lacked more than the "
+                  "chunks the base lacks")
+            for r in (replica, replica2):
+                check(r.verify_image(tm.image, tm.tag_of(0), deep=False)
+                      == [], f"{tm.image} does not verify at {r.root}")
+            row = dict(tenant=tm.image, seconds=seconds,
+                       rounds=fan.negotiation_rounds,
+                       source_blob_reads=fan.source_blob_reads,
+                       bytes_payload=paid,
+                       bytes_sent=[r.stats.bytes_sent for r in fan.replicas],
+                       lacked=lack)
+            fans.append(row)
+            log("replicate", **row)
+        served = []
+        for tm, variant in tenants[:2]:
+            t0 = time.perf_counter()
+            got = CheckpointManager("", cfg.name, image=tm.image,
+                                    store=replica2).restore(0, device=dev)
+            restore_s = time.perf_counter() - t0
+            toks = Engine(cfg, got[0], max_len=prompts.shape[1] + new_tokens
+                          + 8, device=dev).generate(prompts, new_tokens)
+            del got
+            want = Engine(cfg, variant, max_len=prompts.shape[1] + new_tokens
+                          + 8, device=dev).generate(prompts, new_tokens)
+            check(np.array_equal(toks.tokens, want.tokens),
+                  f"{tm.image} served from the replica != a direct engine")
+            served.append(dict(tenant=tm.image, restore_seconds=restore_s,
+                               tokens_equal=True,
+                               first_tokens=toks.tokens[0, :8].tolist()))
+            log("replicate", **served[-1])
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        out["replicate"] = dict(fans=fans, served=served,
+                                launches=fingerprint_leaves.launches)
+    finally:
+        shutil.rmtree(rep2_dir, ignore_errors=True)
+    out["tenants"] = dict(saves=logs, incremental=inc,
+                          launches=tenant_launches)
+    return out
+
+
+def _first_reference(store, h: str) -> tuple:
+    """The (image, tag, layer) the scrub attributes blob ``h`` to: the
+    first that references it, images and tags in sorted order."""
+    for name in store.list_images():
+        for tag in store.list_tags(name, fresh=True):
+            manifest, _ = store.read_image(name, tag)
+            for lid in manifest.layer_ids:
+                if h in _layer_chunks(store, lid):
+                    return name, tag, lid
+    return ()
+
+
+def _scrub_and_heal(cfg, mgr, fol, dev, prompts, new_tokens,
+                    want_tokens) -> dict:
+    """Phase ``scrub`` on the passive follower's replica: a full pass finds
+    nothing; one committed blob of the head is then rotted at rest, and
+    sliced passes of 256 MiB, run until the cursor wraps, find exactly that
+    blob, attributed to the first (image, tag, layer) that references it.
+    ``repair_image`` heals it from the trainer's store, a further full
+    pass is clean, and the head restores to the direct engine's tokens."""
+    from repro_torch.ckpt.manager import unflatten_tree
+    from repro_torch.core import repair_image
+    from repro_torch.ft import ScrubReport, inject_bitrot
+    from repro_torch.kernels.fingerprint.ops import fingerprint_leaves
+    from repro_torch.serve import Engine
+
+    replica, head = fol.local, mgr.tag_of(1)
+    fingerprint_leaves.launches = 0
+    passes = []
+
+    def note(kind, rep):
+        passes.append(dict(kind=kind, seconds=rep.wall_s,
+                           bytes_scanned=rep.bytes_scanned,
+                           blobs_scanned=rep.blobs_scanned,
+                           shards_scanned=rep.shards_scanned,
+                           findings=len(rep.findings)))
+
+    full = replica.scrub(reset=True)
+    note("full", full)
+    check(full.complete and full.clean,
+          f"the replica scrubs unclean: {full.summary()}")
+    flips = inject_bitrot(replica.root, seed=0, count=1,
+                          candidates=sorted(_blob_set(replica, fol.image,
+                                                      head)))
+    victim = flips[0][0]
+    where = _first_reference(replica, victim)
+    sliced, slices = ScrubReport(), 0
+    while True:
+        part = replica.scrub(max_bytes=256 << 20)
+        note("slice", part)
+        sliced.merge(part)
+        slices += 1
+        if part.complete:
+            break
+    found = [(f.kind, f.blob, (f.image, f.tag, f.layer_id))
+             for f in sliced.findings]
+    check(found == [("corrupt_blob", victim, where)],
+          f"sliced scrub found {found}; rotted {victim[:12]} at {where}")
+    t0 = time.perf_counter()
+    rr = repair_image(replica, fol.image, head, peers=[mgr.store],
+                      scrub_report=sliced)
+    repair_s = time.perf_counter() - t0
+    check(rr.verified_clean and rr.repaired_blobs == 1,
+          f"repair: {rr}")
+    replica.purge_quarantine()
+    after = replica.scrub()
+    note("full_after_repair", after)
+    check(after.complete and after.clean,
+          f"the healed replica scrubs unclean: {after.summary()}")
+    flat = replica.load_image_payload(fol.image, head)
+    tree = {k[len("params/"):]: v for k, v in flat.items()
+            if k.startswith("params/")}
+    toks = Engine(cfg, unflatten_tree(tree),
+                  max_len=prompts.shape[1] + new_tokens + 8,
+                  device=dev).generate(prompts, new_tokens)
+    check(np.array_equal(toks.tokens, want_tokens),
+          "the healed head serves other tokens than a direct engine")
+    res = dict(passes=passes, slices=slices, victim=victim[:12],
+               attributed=list(where[:2]) + [where[2][:12]],
+               repair_seconds=repair_s, repaired_blobs=rr.repaired_blobs,
+               bytes_pulled=rr.bytes_pulled, tokens_equal=True,
+               launches=fingerprint_leaves.launches)
+    log("scrub", **res)
+    return res
 
 
 def _clone(tree):
@@ -1277,6 +1596,10 @@ def main() -> int:
     yi = run_model("yi-6b", dev, edit="blocks/wk", batch=4, prompt_len=128,
                    new_tokens=32, follower="smart")
     fp, fp_launches = yi["kernel"], yi["launches"]
+    store_paths = {"fp_per_leaf": yi["fp_per_leaf"]["launches"],
+                   "tenants": yi["tenants"]["launches"],
+                   "replicate": yi["replicate"]["launches"]}
+    per_leaf = yi["fp_per_leaf"]
     del yi
     torch.cuda.empty_cache()
 
@@ -1288,6 +1611,7 @@ def main() -> int:
     path = phase_kernel_path(cfg, hy["engine"].params, hy["prompts"], dev)
     full = phase_kernel_full(path["layer0"], cfg)
     fp_hybrid_launches, launches = hy["launches"], path["launches"]
+    store_paths["scrub"] = hy["scrub"]["launches"]
     ssd_cuda_kernels = path["ssd_cuda_kernels"]
     del hy, path
     torch.cuda.empty_cache()
@@ -1305,6 +1629,9 @@ def main() -> int:
     fp_row.update(check="bit-exact", tree_bytes=fp["tree_bytes"],
                   launches_hybrid_path=fp_hybrid_launches,
                   launches_train_path=tr["launches"],
+                  launches_store_paths=store_paths,
+                  per_leaf={k: per_leaf[k] for k in (
+                      "leaves", "per_leaf_ms", "packed_ms")},
                   train_tree={k: tr["kernel"][k] for k in (
                       "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by",
                       "tree_bytes", "rows")})

@@ -1,6 +1,7 @@
 """CheckpointManager — training state as layered, content-addressed images
 (torch port of ``repro/ckpt/manager.py``: saves, synchronous or on one
-background writer, retention, and restore).
+background writer, retention, restore, tenants sharing one store, and
+delta replication).
 
 A checkpoint is an image whose layers mirror a Dockerfile:
 
@@ -21,6 +22,8 @@ package restores the other's checkpoints bit for bit.
   (total_chunks, 2) table over D2H, ``BuildReport.bytes_d2h``), then only
   the changed chunk ranges are copied to the host and SHA-256'd, and all
   changed layers go through ONE ``inject_image_multi`` transaction.
+  ``packed_fingerprints=False`` keeps the per-leaf baseline
+  (``fingerprint_tree``: one launch and one D2H copy per leaf).
 
 Leaves stay on their device until a chunk range is actually needed.
 
@@ -35,8 +38,10 @@ then published as bundles (the head in full, plus one squashed bundle
 per ``publish_spans`` entry) under a signed index, for followers that
 pull without a live peer.
 
-Not ported yet: ``packed_fingerprints=False`` (the per-leaf dispatch
-baseline) raises.
+Several managers may share ONE store (``store=``), each under its own
+``image=``; ``base_image=`` forks a tenant's first save from another image
+of that store, and ``replicate()`` ships a checkpoint to replica stores as
+a delta.
 """
 from __future__ import annotations
 
@@ -49,7 +54,9 @@ import numpy as np
 import torch
 
 from ..core import (BuildReport, Instruction, LayerStore, PassiveRegistry,
-                    diff_image, fingerprint_tree_packed, inject_image_multi)
+                    RelayNode, diff_image, fingerprint_tree,
+                    fingerprint_tree_packed, inject_image_multi, push_delta,
+                    replicate_fanout)
 from ..device import resolve_device
 from ..ft.faults import CrashInjected
 
@@ -139,8 +146,7 @@ class CheckpointPolicy:
     incremental: bool = True          # the paper's technique (vs baseline)
     use_fingerprints: bool = False    # on-device change detection
     packed_fingerprints: bool = True  # ONE dispatch for the whole tree
-                                      # (False, the per-leaf baseline, is
-                                      # not ported)
+                                      # (False = per-leaf dispatch baseline)
     async_write: bool = True
     chunk_bytes: int = 1 << 20
     durability: str = "batch"         # per-chunk fsyncs defer to one
@@ -154,24 +160,35 @@ class CheckpointPolicy:
 
 class CheckpointManager:
     """See module docstring. ``image=`` names this manager's image (default
-    ``"ckpt"``); ``registry=`` is the passive bundle registry to publish
-    into after each save (best-effort: an error lands in
-    ``last_publish_error`` and never fails the save)."""
+    ``"ckpt"``), and several managers may share ONE ``LayerStore`` (pass
+    ``store=``; ``root`` is then ignored): the cross-image blob universe,
+    where tenant checkpoints dedup against each other and against a shared
+    base. ``base_image=("name", "tag")`` forks this manager's FIRST save
+    from another image in the same store: the build runs with that image
+    as its DLC cache parent, so unchanged layers reuse the base's layer ids
+    outright, and ``replicate`` later ships only the adapter delta to
+    replicas that already hold the base. Retention (``prune_steps`` and
+    the store-wide ``gc()``) is per image but safe across images.
+    ``registry=`` is the passive bundle registry to publish into after
+    each save (best-effort: an error lands in ``last_publish_error`` and
+    never fails the save)."""
 
     IMAGE = "ckpt"
 
     def __init__(self, root: str, arch: str,
                  policy: Optional[CheckpointPolicy] = None,
-                 image: Optional[str] = None, registry=None):
+                 image: Optional[str] = None,
+                 base_image: Optional[Tuple[str, str]] = None,
+                 store: Optional[LayerStore] = None,
+                 registry=None):
         self.policy = policy or CheckpointPolicy()
-        if not self.policy.packed_fingerprints:
-            raise NotImplementedError(
-                "packed_fingerprints=False (one fingerprint dispatch per "
-                "leaf, the benchmark baseline) is not ported; the port "
-                "fingerprints the whole tree in one launch")
-        self.store = LayerStore(root, chunk_bytes=self.policy.chunk_bytes,
-                                durability=self.policy.durability)
+        # a shared store keeps ITS chunking/durability: tenants of one
+        # universe must agree on chunk geometry or dedup silently dies
+        self.store = store if store is not None else LayerStore(
+            root, chunk_bytes=self.policy.chunk_bytes,
+            durability=self.policy.durability)
         self.image = image or self.IMAGE
+        self.base_image = base_image
         self.arch = arch
         self.registry = registry if registry is None or \
             isinstance(registry, PassiveRegistry) \
@@ -248,19 +265,29 @@ class CheckpointManager:
 
     def _compute_fps(self, payloads: Dict[str, Dict[str, torch.Tensor]],
                      stats: dict) -> Dict[str, np.ndarray]:
-        """Fingerprint every tensor of the checkpoint in one pass."""
+        """Fingerprint every tensor of the checkpoint. Packed mode issues
+        ONE kernel launch and one D2H copy for the whole tree; per-leaf
+        mode is the launch-per-tensor baseline kept for comparison."""
         union: Dict[str, torch.Tensor] = {}
         for tree in payloads.values():
             union.update(tree)
-        return fingerprint_tree_packed(union, self.policy.chunk_bytes,
-                                       stats=stats)
+        if self.policy.packed_fingerprints:
+            return fingerprint_tree_packed(union, self.policy.chunk_bytes,
+                                           stats=stats)
+        fps = fingerprint_tree(union, self.policy.chunk_bytes)
+        stats["bytes_d2h"] = stats.get("bytes_d2h", 0) + \
+            sum(v.nbytes for v in fps.values())
+        stats["device_dispatches"] = stats.get("device_dispatches", 0) + \
+            len(fps)
+        return fps
 
     def _save_full(self, step: int,
                    payloads: Dict[str, Dict[str, torch.Tensor]],
                    fps: Optional[Dict[str, np.ndarray]] = None
                    ) -> BuildReport:
         prev = self.latest_step()
-        parent = (self.image, self.tag_of(prev)) if prev is not None else None
+        parent = (self.image, self.tag_of(prev)) if prev is not None \
+            else self.base_image
         providers = {k: (lambda p=v: p) for k, v in payloads.items()}
         ins = self._instructions()
         ins[-1] = Instruction("ENV", f"meta step={step}", "config")
@@ -348,6 +375,101 @@ class CheckpointManager:
             # object store" — best-effort must not swallow the crash
         except Exception as e:  # noqa: BLE001
             self.last_publish_error = f"{type(e).__name__}: {e}"
+
+    # --------------------------------------------------------- replication
+    def replicate(self, remote=None, step: Optional[int] = None,
+                  relay=None, source: Optional[str] = None):
+        """Ship a checkpoint to serving/registry stores as a DELTA: one
+        have-set negotiation + only the chunks a remote is missing cross
+        the wire. After an incremental save this is O(changed bytes) —
+        call it at the save cadence to keep serving replicas hot.
+
+        ``remote`` is a LayerStore or filesystem path (-> ``push_delta``,
+        returns PushStats, failures raise), or a list/tuple of them (->
+        ``replicate_fanout``, returns FanoutStats: ONE negotiation round +
+        one source read pass for the whole fleet, per-replica failures
+        isolated so one sick replica never blocks the rest).
+
+        ``relay`` adds multi-hop tiers (trainer -> M relays -> N edge
+        followers each): a dict ``{relay_store_or_path: [children...]}``,
+        or a sequence of ``RelayNode``s / ``(store_or_path, children)``
+        pairs; children may themselves be any of those shapes, so tiers
+        nest. Relays and plain remotes ride the SAME fan-out (one
+        negotiation round, one source read pass); each relay re-fans its
+        pull to its children — streaming from the in-flight pull with
+        ``source="inflight"``, after its own commit with "commit", or each
+        node's configured mode when None. Returns FanoutStats whose
+        ``replicas[i].children`` nests each relay's downstream outcome."""
+        self.wait()
+        if remote is None and relay is None:
+            raise ValueError("replicate() needs a destination: pass "
+                             "remote=, relay=, or both")
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+
+        def as_store(r):
+            # RelayNodes pass through untouched (replicate_fanout accepts
+            # receivers directly), so a relay may ride in a remote list
+            if isinstance(r, (LayerStore, RelayNode)):
+                return r
+            return LayerStore(str(r), chunk_bytes=self.policy.chunk_bytes)
+
+        def as_relays(spec):
+            # dict {store: children} | sequence of RelayNode /
+            # (store, children) pairs — children recurse through the same
+            # shapes, so tiers nest in any of them
+            out = []
+            for item in (spec.items() if isinstance(spec, dict) else spec):
+                if isinstance(item, RelayNode):
+                    out.append(item)
+                    continue
+                store, children = item
+                if isinstance(children, (str, bytes)):
+                    # would be iterated per CHARACTER into junk stores
+                    raise TypeError("relay children must be a sequence, "
+                                    f"not a bare path: {children!r}")
+                kids = []
+                for c in children:
+                    if isinstance(c, dict):
+                        kids.extend(as_relays(c))
+                    elif isinstance(c, (tuple, RelayNode)):
+                        kids.extend(as_relays([c]))
+                    else:
+                        kids.append(as_store(c))
+                out.append(RelayNode(as_store(store), children=kids))
+            return out
+
+        if relay is not None:
+            relays = as_relays(relay)
+            plain = [] if remote is None else (
+                list(remote) if isinstance(remote, (list, tuple)) else [remote])
+            return replicate_fanout(
+                self.store, [as_store(r) for r in plain] + relays,
+                self.image, self.tag_of(step), source=source)
+        if isinstance(remote, (list, tuple)):
+            # source re-modes RelayNodes the caller put in the list; with
+            # none present it would be a silent no-op, so reject it the
+            # same way the single-remote branch does
+            if source is not None and \
+                    not any(isinstance(r, RelayNode) for r in remote):
+                raise ValueError("source= only applies to relay "
+                                 "topologies; no relay in the remote list")
+            return replicate_fanout(self.store, [as_store(r) for r in remote],
+                                    self.image, self.tag_of(step),
+                                    source=source)
+        if source is not None and not isinstance(remote, RelayNode):
+            raise ValueError("source= only applies to relay topologies; a "
+                             "plain remote has no re-fan to mode")
+        if isinstance(remote, RelayNode):
+            fan = replicate_fanout(self.store, [remote], self.image,
+                                   self.tag_of(step), source=source)
+            rep = fan.replicas[0]
+            if rep.exception is not None:
+                raise rep.exception
+            return fan
+        return push_delta(self.store, as_store(remote), self.image,
+                          self.tag_of(step))
 
     # ------------------------------------------------------------ restore
     def restore(self, step: Optional[int] = None, device=None

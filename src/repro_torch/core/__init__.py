@@ -1,6 +1,6 @@
 """The layered, content-addressed store for model state with O(delta)
 injection updates and a verifying delta registry (torch port of
-``repro.core``: the parts that saving, replication and serving use)."""
+``repro.core``)."""
 from .chunker import (DEFAULT_CHUNK_BYTES, TensorRecord, bytes_to_tensor,
                       chunk_tensor, dtype_str, hash_chunks, hash_pool,
                       iter_chunks, sha256_hex, tensor_chunk_bytes,
@@ -12,9 +12,11 @@ from .diff import (ChunkEdit, LayerDiff, diff_image, diff_layer_fingerprint,
                    diff_layer_host, diff_manifests, diff_tensor_records,
                    locate_changed_layers)
 from .fingerprint import (chunk_geometry, fingerprint_chunk_bytes_ref,
-                          fingerprint_tree_packed, tree_pack_index)
+                          fingerprint_chunks, fingerprint_chunks_ref,
+                          fingerprint_tree, fingerprint_tree_packed,
+                          fingerprint_tree_ref, tree_pack_index)
 from .inject import (StructureChangeError, apply_edits, clone_layer,
-                     inject_image_multi)
+                     inject_image, inject_image_multi, inject_payload_update)
 from .manifest import (ImageConfig, Instruction, LayerDescriptor, Manifest,
                        chain_checksum, content_checksum, history_delta_chain,
                        injection_history_entry, new_uuid)
@@ -36,10 +38,11 @@ __all__ = [
     "ChunkEdit", "LayerDiff", "diff_image", "diff_layer_fingerprint",
     "diff_layer_host", "diff_manifests", "diff_tensor_records",
     "locate_changed_layers",
-    "chunk_geometry", "fingerprint_chunk_bytes_ref",
-    "fingerprint_tree_packed", "tree_pack_index",
-    "StructureChangeError", "apply_edits", "clone_layer",
-    "inject_image_multi",
+    "chunk_geometry", "fingerprint_chunk_bytes_ref", "fingerprint_chunks",
+    "fingerprint_chunks_ref", "fingerprint_tree", "fingerprint_tree_packed",
+    "fingerprint_tree_ref", "tree_pack_index",
+    "StructureChangeError", "apply_edits", "clone_layer", "inject_image",
+    "inject_image_multi", "inject_payload_update",
     "ImageConfig", "Instruction", "LayerDescriptor", "Manifest",
     "chain_checksum", "content_checksum", "history_delta_chain",
     "injection_history_entry", "new_uuid",

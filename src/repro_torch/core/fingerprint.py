@@ -9,11 +9,21 @@ prefilter. Both reductions (xor, wrapping add) are associative and
 commutative, so the table is bit-identical to the JAX package's whatever
 the order of the sums.
 
-``fingerprint_tree_packed`` fingerprints a whole flat payload dict with ONE
-kernel launch (kernels/fingerprint/csrc/fingerprint.cu) when the leaves
-are on a CUDA device, and with the plain torch version when they are on
-the CPU. The kernel reads every leaf in place: there is no padded
-(total_chunks, max_lanes) buffer as on the TPU path.
+Two granularities, both on ``kernels/fingerprint/csrc/fingerprint.cu``
+when the leaves are on a CUDA device and on the plain torch version when
+they are on the CPU:
+
+* ``fingerprint_chunks`` — one tensor per call, and ``fingerprint_tree``,
+  one launch and one D2H copy PER LEAF: the dispatch-bound baseline that
+  ``packed_fingerprints=False`` keeps for comparison.
+* ``fingerprint_tree_packed`` — a whole flat payload dict with ONE kernel
+  launch and one D2H copy of the (total_chunks, 2) table. The kernel reads
+  every leaf in place: there is no padded (total_chunks, max_lanes)
+  buffer as on the TPU path.
+
+``fingerprint_chunks_ref`` / ``fingerprint_tree_ref`` are the host
+oracles (the plain version on the CPU), with the JAX package's names and
+results.
 """
 from __future__ import annotations
 
@@ -62,6 +72,34 @@ def tree_pack_index(tree: Dict[str, torch.Tensor], chunk_bytes: int
     return index, row, max_lanes
 
 
+def _tree_device(tree: Dict[str, torch.Tensor]) -> torch.device:
+    """The first CUDA device among the leaves, else the CPU."""
+    return next((t.device for t in tree.values() if t.device.type == "cuda"),
+                torch.device("cpu"))
+
+
+def fingerprint_chunks(arr: torch.Tensor,
+                       chunk_bytes: int = 1 << 20) -> torch.Tensor:
+    """-> (n_chunks, 2) int32 fingerprints of one tensor, on its device
+    (one kernel launch on the card), chunk boundaries matching
+    chunker.iter_chunks on the serialized bytes."""
+    t = arr.detach().contiguous()
+    return fingerprint_leaves(
+        [t], [chunk_geometry(shape_of(t), dtype_str(t), chunk_bytes)])
+
+
+def fingerprint_tree(tree: Dict[str, torch.Tensor],
+                     chunk_bytes: int = 1 << 20) -> Dict[str, np.ndarray]:
+    """name -> (n_chunks, 2) int32 fingerprints, one launch and one D2H
+    copy PER LEAF: the dispatch-bound baseline that
+    ``fingerprint_tree_packed`` is measured against. Leaves go to the
+    tree's CUDA device, as in the packed path; the table is bit-identical
+    to ``fingerprint_tree_packed``'s."""
+    device = _tree_device(tree)
+    return {name: fingerprint_chunks(v.to(device), chunk_bytes).cpu().numpy()
+            for name, v in tree.items()}
+
+
 def fingerprint_tree_packed(tree: Dict[str, torch.Tensor],
                             chunk_bytes: int = 1 << 20, *,
                             stats: Optional[dict] = None
@@ -78,8 +116,7 @@ def fingerprint_tree_packed(tree: Dict[str, torch.Tensor],
         return {}
     names = list(tree)
     index, _, _ = tree_pack_index(tree, chunk_bytes)
-    device = next((t.device for t in tree.values() if t.device.type == "cuda"),
-                  torch.device("cpu"))
+    device = _tree_device(tree)
     leaves = [tree[n].detach().to(device).contiguous() for n in names]
     geom = [chunk_geometry(shape_of(t), dtype_str(t), chunk_bytes)
             for t in leaves]
@@ -88,6 +125,21 @@ def fingerprint_tree_packed(tree: Dict[str, torch.Tensor],
         stats["bytes_d2h"] = stats.get("bytes_d2h", 0) + fp_all.nbytes
         stats["device_dispatches"] = stats.get("device_dispatches", 0) + 1
     return {name: fp_all[off:off + n] for name, off, n in index}
+
+
+def fingerprint_chunks_ref(arr, chunk_bytes: int = 1 << 20) -> np.ndarray:
+    """Host oracle of ``fingerprint_chunks`` for a tensor or a numpy array:
+    the plain version on the CPU, never the kernel."""
+    t = arr.detach().cpu() if isinstance(arr, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(arr))
+    return fingerprint_tree_packed({"x": t}, chunk_bytes)["x"]
+
+
+def fingerprint_tree_ref(tree, chunk_bytes: int = 1 << 20
+                         ) -> Dict[str, np.ndarray]:
+    """Host oracle for a whole flat payload dict (no device round-trip)."""
+    return {name: fingerprint_chunks_ref(v, chunk_bytes)
+            for name, v in tree.items()}
 
 
 def fingerprint_chunk_bytes_ref(data, dtype: str,
@@ -103,5 +155,5 @@ def fingerprint_chunk_bytes_ref(data, dtype: str,
             len(data) % dtype_itemsize(dtype):
         return None
     t = bytes_to_tensor(bytes(data), (-1,), dtype)
-    fp = fingerprint_tree_packed({"chunk": t}, chunk_bytes)["chunk"]
+    fp = fingerprint_chunks_ref(t, chunk_bytes)
     return int(fp[0, 0]), int(fp[0, 1])

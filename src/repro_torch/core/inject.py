@@ -43,6 +43,10 @@ per-layer O(k·#layers) metadata cost collapses back to the paper's O(1).
 ``BuildReport.per_layer`` attributes chunks/bytes/re-keys/re-derivations to
 each source layer; ``rekey_walks`` and ``manifest_commits`` prove the
 single-walk/single-commit claim.
+
+``inject_image`` (the single-image API) is a thin wrapper running the same
+pipeline under the store's own durability mode, and
+``inject_payload_update`` diffs new payload values on the host first.
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from .chunker import TensorRecord
-from .diff import LayerDiff
+from .diff import LayerDiff, diff_image
 from .fingerprint import fingerprint_chunk_bytes_ref
 from .manifest import (ImageConfig, LayerDescriptor, Manifest, chain_checksum,
                        content_checksum, injection_history_entry, new_uuid)
@@ -309,3 +313,31 @@ def inject_image_multi(store: LayerStore,
                                     for d in diffs.values())
     report.wall_seconds = time.perf_counter() - t0
     return new_manifest, new_config, report
+
+
+def inject_image(store: LayerStore,
+                 name: str, tag: str, new_tag: str,
+                 diffs: Dict[str, LayerDiff],
+                 providers: Optional[Dict[str, Callable[
+                     [], Dict[str, torch.Tensor]]]] = None,
+                 ) -> Tuple[Manifest, ImageConfig, BuildReport]:
+    """Seed-compatible single-transaction API: the same pipeline under the
+    store's own durability mode (batch by default store-wide; a store
+    opened with durability="full" keeps its per-write fsync accounting)."""
+    return inject_image_multi(store, name, tag, new_tag, diffs, providers,
+                              durability=None)
+
+
+def inject_payload_update(store: LayerStore, name: str, tag: str,
+                          new_tag: str,
+                          payloads: Dict[str, Dict[str, torch.Tensor]],
+                          providers=None,
+                          ) -> Tuple[Manifest, ImageConfig, BuildReport]:
+    """Convenience: C1 (host diff) + full injection for new payload values.
+
+    ``payloads`` maps instruction arg (payload key) -> new payload dict.
+    """
+    manifest, _ = store.read_image(name, tag)
+    layers = [store.read_layer(lid) for lid in manifest.layer_ids]
+    diffs = diff_image(layers, payloads)
+    return inject_image(store, name, tag, new_tag, diffs, providers)

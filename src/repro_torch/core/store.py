@@ -1,13 +1,14 @@
 """LayerStore — the on-disk content-addressed layer store (torch port of
-the part of ``repro/core/store.py`` that saving, serving and retention
-and replication use: blobs, layers, images and tags, batch durability,
+``repro/core/store.py``: blobs, layers, images and tags, batch durability,
 ``build_image`` with the DLC cache rules, payload loading,
-``verify_image``, the cross-image holdings index the delta registry
-negotiates against, retention leases, quarantine, repair pinning, and
-``remove_image`` with the mark-and-sweep ``gc`` and its hooks). The format
-on disk is byte-identical to the JAX package's, quarantine directory
-included; leases and the holdings index live in memory, per store
-instance, as in the reference.
+``verify_image``, the resumable at-rest ``scrub``, the cross-image
+holdings index the delta registry negotiates against, retention leases,
+quarantine, repair pinning, ``remove_image`` with the mark-and-sweep
+``gc`` and its hooks, and ``export_image``/``import_image`` bundles). The
+format on disk is byte-identical to the JAX package's, quarantine
+directory and scrub cursor included, and so is an exported bundle; leases
+and the holdings index live in memory, per store instance, as in the
+reference.
 
 Layout (mirrors /var/lib/docker/overlay2 + image metadata):
 
@@ -16,6 +17,7 @@ Layout (mirrors /var/lib/docker/overlay2 + image metadata):
     <root>/images/<name>/<tag>.json     Manifest
     <root>/images/<name>/<config>.json  ImageConfig
     <root>/quarantine/<h>               corrupt blobs moved aside
+    <root>/scrub.cursor.json            next blob shard of a sliced scrub
 
 All metadata writes are atomic (tmp + os.replace) so a crash mid-save never
 leaves a referenced-but-corrupt image — the commit point is the manifest
@@ -42,9 +44,11 @@ concurrent flush at the manifest commit point.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
+import tarfile
 import threading
 import time
 from dataclasses import dataclass, field
@@ -53,6 +57,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ft.faults import CrashInjected, fault_point
+from ..ft.scrub import (N_SHARDS, ScrubFinding, ScrubReport, clear_cursor,
+                        load_cursor, save_cursor)
 from .chunker import (DEFAULT_CHUNK_BYTES, TensorRecord, assemble_tensor,
                       chunk_tensor, dtype_str, sha256_hex, shape_of)
 from .fingerprint import fingerprint_tree_packed
@@ -185,10 +191,25 @@ class BuildReport:
     # {"chunks_written", "bytes_written", "rekeyed", "rederived"}.
     per_layer: Dict[str, Dict[str, int]] = field(default_factory=dict)
 
+    _COUNTERS = ("layers_built", "layers_cached", "layers_injected",
+                 "layers_rekeyed", "bytes_serialized", "bytes_hashed",
+                 "chunks_written", "derivations_run", "bytes_d2h",
+                 "chunks_prefiltered", "fsyncs", "rekey_walks",
+                 "manifest_commits")
+
     def layer_entry(self, layer_id: str) -> Dict[str, int]:
         return self.per_layer.setdefault(
             layer_id, {"chunks_written": 0, "bytes_written": 0,
                        "rekeyed": 0, "rederived": 0})
+
+    def merge(self, other: "BuildReport") -> None:
+        for k in self._COUNTERS:
+            setattr(self, k, getattr(self, k) + getattr(other, k))
+        for lid, entry in other.per_layer.items():
+            mine = self.layer_entry(lid)
+            for k, v in entry.items():
+                mine[k] = mine.get(k, 0) + v
+        self.wall_seconds += other.wall_seconds
 
 
 class LayerStore:
@@ -979,6 +1000,13 @@ class LayerStore:
         return manifest, config, report
 
     # ------------------------------------------------------------- load API
+    def load_layer_payload(self, layer: LayerDescriptor
+                           ) -> Dict[str, torch.Tensor]:
+        """A layer's tensors assembled from their chunk blobs, as host
+        tensors (bf16 records come back as ``torch.bfloat16``)."""
+        return {r.name: assemble_tensor(r, self.read_blob)
+                for r in layer.records}
+
     def load_image_payload(self, name: str, tag: str,
                            names: Optional[Sequence[str]] = None
                            ) -> Dict[str, torch.Tensor]:
@@ -1143,3 +1171,255 @@ class LayerStore:
                             problems.append(f"layer {lid}: corrupt blob {h[:12]}")
             parent_chain = layer.chain
         return problems
+
+    # ---------------------------------------------------------------- scrub
+    def scrub(self, max_bytes: Optional[int] = None,
+              max_items: Optional[int] = None,
+              reset: bool = False) -> "ScrubReport":
+        """Integrity walk over the WHOLE store — the detection half of the
+        self-healing loop (``ft/scrub.py`` owns the result model,
+        ``repair_image`` in core/registry.py consumes the findings).
+
+        Two phases per pass:
+
+        1. **metadata** (first slice of a pass only): every committed
+           tag's manifest, config locks, layer content checksums and chain
+           re-key links are re-verified from the bytes on disk (never the
+           cache), and committed chunks are checked for existence —
+           exactly ``verify_image(deep=False)``'s checks plus missing-blob
+           detection, across the full namespace.
+        2. **blobs**: every payload under ``blobs/sha256`` is re-hashed
+           against its content address, shard by shard (256 shards). A
+           mismatch on a committed blob is a ``corrupt_blob`` finding
+           attributed to the first (image, tag, layer) that references
+           it; unreferenced blobs are ``orphan_blob`` debris.
+
+        ``max_bytes``/``max_items`` bound one slice's re-hash work (at
+        shard granularity; at least one shard always makes progress) —
+        when the budget runs out the position persists in
+        ``<root>/scrub.cursor.json`` and the next call resumes there, so a
+        fleet-scale store is scrubbed across many short slices. The
+        attribution map is rebuilt each slice (cheap metadata reads); the
+        byte-heavy re-hashing never repeats a shard within a pass.
+        ``reset=True`` discards the cursor and starts a fresh pass.
+
+        Paths belonging to the open batch transaction or pinned by an
+        in-progress repair are skipped — they are not committed state.
+        Losing the cursor (crash between slices) only costs re-scrubbed
+        shards, never a false verdict.
+        """
+        t0 = time.perf_counter()
+        rep = ScrubReport()
+        if reset:
+            clear_cursor(self.root)
+        cursor = load_cursor(self.root)
+        first_slice = cursor == 0
+        with self._dirty_lock:
+            in_flight = set(self._dirty_files) | set(self._protected_paths)
+
+        # metadata walk: attribution map (every slice) + integrity
+        # findings (first slice of the pass only — they would duplicate)
+        refs: Dict[str, Tuple[str, str, str]] = {}
+        committed_lids: set = set()
+        flagged: set = set()            # (kind, id) dedup across shared refs
+        for name in self.list_images():
+            seen = False
+            for tag in self.list_tags(name, fresh=True):
+                try:
+                    manifest, config = self.read_image(name, tag)
+                except (OSError, ValueError, KeyError) as e:
+                    if first_slice:
+                        rep.findings.append(ScrubFinding(
+                            "manifest_unreadable", detail=str(e),
+                            image=name, tag=tag))
+                    continue
+                seen = True
+                parent_chain: Optional[str] = None
+                chain_broken = False
+                for lid in manifest.layer_ids:
+                    committed_lids.add(lid)
+                    if not self.has_layer(lid):
+                        if first_slice and ("missing_layer", lid) not in flagged:
+                            flagged.add(("missing_layer", lid))
+                            rep.findings.append(ScrubFinding(
+                                "missing_layer", image=name, tag=tag,
+                                layer_id=lid))
+                        chain_broken = True
+                        continue
+                    try:
+                        layer = self.read_layer(lid, use_cache=False)
+                    except (OSError, ValueError, KeyError) as e:
+                        if first_slice and ("layer_unreadable", lid) not in flagged:
+                            flagged.add(("layer_unreadable", lid))
+                            rep.findings.append(ScrubFinding(
+                                "layer_unreadable", detail=str(e),
+                                image=name, tag=tag, layer_id=lid))
+                        chain_broken = True
+                        continue
+                    rep.layers_scanned += 1
+                    if first_slice:
+                        if content_checksum(layer.records) != layer.checksum \
+                                and ("layer_checksum_mismatch", lid) not in flagged:
+                            flagged.add(("layer_checksum_mismatch", lid))
+                            rep.findings.append(ScrubFinding(
+                                "layer_checksum_mismatch", image=name,
+                                tag=tag, layer_id=lid))
+                        if config.layer_checksums.get(lid) != layer.checksum \
+                                and ("config_lock_mismatch", lid) not in flagged:
+                            flagged.add(("config_lock_mismatch", lid))
+                            rep.findings.append(ScrubFinding(
+                                "config_lock_mismatch", image=name,
+                                tag=tag, layer_id=lid))
+                        if not chain_broken:
+                            expected = chain_checksum(
+                                parent_chain, layer.checksum,
+                                layer.instruction.text)
+                            if (expected != layer.chain or
+                                    config.layer_chains.get(lid) != layer.chain) \
+                                    and ("chain_mismatch", lid) not in flagged:
+                                flagged.add(("chain_mismatch", lid))
+                                rep.findings.append(ScrubFinding(
+                                    "chain_mismatch", image=name, tag=tag,
+                                    layer_id=lid))
+                    for rec in layer.records:
+                        for h in rec.chunks:
+                            refs.setdefault(h, (name, tag, lid))
+                            if first_slice and not self.has_blob(h) \
+                                    and ("missing_blob", h) not in flagged:
+                                flagged.add(("missing_blob", h))
+                                rep.findings.append(ScrubFinding(
+                                    "missing_blob", image=name, tag=tag,
+                                    layer_id=lid, blob=h))
+                    parent_chain = layer.chain
+            if seen:
+                rep.images_scanned += 1
+
+        if first_slice:
+            layers_dir = os.path.join(self.root, "layers")
+            for fn in sorted(os.listdir(layers_dir)):
+                lid = fn[:-5]
+                if not fn.endswith(".json") or not _HEX_ID.fullmatch(lid) \
+                        or lid in committed_lids:
+                    continue
+                if os.path.join(layers_dir, fn) in in_flight:
+                    continue
+                rep.findings.append(ScrubFinding(
+                    "orphan_layer", detail="descriptor unreachable from "
+                    "any committed tag", layer_id=lid))
+
+        # blob phase: re-hash shards from the cursor until done or budget
+        blob_root = os.path.join(self.root, "blobs", "sha256")
+        shard = cursor
+        budget_hit = False
+        while shard < N_SHARDS:
+            d = os.path.join(blob_root, f"{shard:02x}")
+            if os.path.isdir(d):
+                for fn in sorted(os.listdir(d)):
+                    if len(fn) != 64 or not _HEX_ID.fullmatch(fn):
+                        continue
+                    path = os.path.join(d, fn)
+                    if path in in_flight:
+                        continue
+                    try:
+                        with open(path, "rb") as f:
+                            data = f.read()
+                    except OSError:
+                        continue
+                    rep.blobs_scanned += 1
+                    rep.bytes_scanned += len(data)
+                    if sha256_hex(data) != fn:
+                        where = refs.get(fn)
+                        if where:
+                            rep.findings.append(ScrubFinding(
+                                "corrupt_blob",
+                                detail="content re-hash mismatch",
+                                image=where[0], tag=where[1],
+                                layer_id=where[2], blob=fn))
+                        else:
+                            rep.findings.append(ScrubFinding(
+                                "orphan_blob",
+                                detail="unreferenced, fails re-hash",
+                                blob=fn))
+                    elif fn not in refs:
+                        rep.findings.append(ScrubFinding(
+                            "orphan_blob", detail="unreferenced", blob=fn))
+            rep.shards_scanned += 1
+            shard += 1
+            if shard < N_SHARDS and (
+                    (max_bytes is not None and rep.bytes_scanned >= max_bytes)
+                    or (max_items is not None
+                        and rep.blobs_scanned >= max_items)):
+                budget_hit = True
+                break
+
+        if budget_hit:
+            rep.next_shard = shard
+            save_cursor(self.root, shard)
+        else:
+            rep.complete = True
+            rep.next_shard = 0
+            clear_cursor(self.root)
+        rep.wall_s = time.perf_counter() - t0
+        return rep
+
+    # ------------------------------------------- explicit decompose (export)
+    def export_image(self, name: str, tag: str) -> bytes:
+        """`docker save`-style bundled tar (manifest + config + layer tars).
+
+        The *explicit* decomposition path of paper §III.A: everything is
+        serialized through an intermediate archive.
+        """
+        manifest, config = self.read_image(name, tag)
+        buf = io.BytesIO()
+        with tarfile.open(fileobj=buf, mode="w") as tar:
+            def add(name_: str, data: bytes) -> None:
+                info = tarfile.TarInfo(name_)
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+
+            add("manifest.json", dumps(manifest.to_json()).encode())
+            add(f"{config.config_id}.json", dumps(config.to_json()).encode())
+            for lid in manifest.layer_ids:
+                layer = self.read_layer(lid)
+                add(f"{lid}/json", dumps(layer.to_json()).encode())
+                add(f"{lid}/VERSION", str(layer.version).encode())
+                inner = io.BytesIO()
+                with tarfile.open(fileobj=inner, mode="w") as ltar:
+                    for rec in layer.records:
+                        data = b"".join(self.read_blob(h) for h in rec.chunks)
+                        info = tarfile.TarInfo(rec.name)
+                        info.size = len(data)
+                        ltar.addfile(info, io.BytesIO(data))
+                add(f"{lid}/layer.tar", inner.getvalue())
+        return buf.getvalue()
+
+    def import_image(self, bundle: bytes) -> Tuple[str, str]:
+        """`docker load` counterpart."""
+        with tarfile.open(fileobj=io.BytesIO(bundle), mode="r") as tar:
+            manifest = Manifest.from_json(
+                json.loads(tar.extractfile("manifest.json").read()))
+            config = ImageConfig.from_json(
+                json.loads(tar.extractfile(f"{manifest.config_id}.json").read()))
+            for lid in manifest.layer_ids:
+                layer = LayerDescriptor.from_json(
+                    json.loads(tar.extractfile(f"{lid}/json").read()))
+                inner = tarfile.open(
+                    fileobj=io.BytesIO(tar.extractfile(f"{lid}/layer.tar").read()))
+                for rec in layer.records:
+                    data = inner.extractfile(rec.name).read()
+                    off = 0
+                    for h in rec.chunks:
+                        piece = data[off:off + rec.chunk_bytes]
+                        off += len(piece)
+                        self.write_blob(h, piece)
+                self.write_layer(layer)
+        self.write_image(manifest, config)
+        return manifest.name, manifest.tag
+
+    # -------------------------------------------- implicit decompose (inplace)
+    def open_layer_inplace(self, layer_id: str) -> LayerDescriptor:
+        """Paper §III.A *implicit* decomposition: read the layer descriptor
+        straight out of the store ("/var/lib/docker/overlay2/<id>/") without
+        any intermediate archive. Chunk blobs are then addressable directly.
+        """
+        return self.read_layer(layer_id)

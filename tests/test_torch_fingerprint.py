@@ -212,3 +212,87 @@ def test_other_devices_are_refused():
     with pytest.raises(ValueError):
         ops.fingerprint_leaves([torch.zeros(4), torch.empty(4, device="meta")],
                                [(1, 4), (1, 4)])
+
+
+# ---------------------------------------------------------------------------
+# the per-leaf baseline and the numpy oracles
+
+@pytest.mark.parametrize("tree_fn", [_kernels_tree, _wide_tree])
+@pytest.mark.parametrize("chunk_bytes", [1024, 100])
+def test_per_leaf_and_oracles_bit_exact_with_jax(tree_fn, chunk_bytes):
+    """``fingerprint_tree`` (one launch per leaf on the card),
+    ``fingerprint_chunks`` and the numpy oracles ``fingerprint_chunks_ref``
+    / ``fingerprint_tree_ref`` on bf16, f32, 64-bit, bool and ragged
+    leaves: equal to the JAX package's functions of the same names."""
+    from repro.core import fingerprint as J
+    from repro_torch.core import fingerprint as T
+    tree = tree_fn()
+    ttree = {k: tensor_from_numpy(v) for k, v in tree.items()}
+    want = J.fingerprint_tree(tree, chunk_bytes)
+    got = T.fingerprint_tree(ttree, chunk_bytes)
+    packed = T.fingerprint_tree_packed(ttree, chunk_bytes)
+    ref_t = T.fingerprint_tree_ref(ttree, chunk_bytes)
+    ref_np = T.fingerprint_tree_ref(
+        {k: v for k, v in tree.items() if str(v.dtype) != "bfloat16"},
+        chunk_bytes)
+    assert list(got) == list(want) == list(ref_t)
+    for name, v in tree.items():
+        assert got[name].dtype == np.int32
+        for table in (got[name], packed[name], ref_t[name],
+                      J.fingerprint_chunks_ref(v, chunk_bytes),
+                      J.fingerprint_tree_ref({name: v}, chunk_bytes)[name]):
+            assert np.array_equal(table, want[name]), name
+        if name in ref_np:
+            assert np.array_equal(ref_np[name], want[name]), name
+        one = T.fingerprint_chunks(ttree[name], chunk_bytes)
+        assert one.dtype == torch.int32
+        assert np.array_equal(one.numpy(), want[name]), name
+        if v.dtype.itemsize < 8:        # jax without x64 narrows 64-bit
+            assert np.array_equal(np.asarray(J.fingerprint_chunks(
+                jnp.asarray(v), chunk_bytes)), want[name]), name
+
+
+def test_per_leaf_saves_equal_packed_ones_with_a_dispatch_per_leaf(
+        tmp_path):
+    """``packed_fingerprints=False``: the saves, the fingerprint tables
+    they keep and the stores equal the packed path's and the JAX
+    package's per-leaf saves; ``device_dispatches`` counts one per leaf
+    and ``bytes_d2h`` the tables, as the reference counts them."""
+    from repro.ckpt import CheckpointManager as JaxManager
+    from repro.ckpt import CheckpointPolicy as JaxPolicy
+    from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
+    from repro_torch.convert import params_from_jax
+    rng = np.random.default_rng(9)
+    p0 = {"embed": rng.standard_normal((40, 16)).astype(ml_dtypes.bfloat16),
+          "blocks": {"w": rng.standard_normal((2, 16, 24)).astype(np.float32),
+                     "n": rng.integers(-9, 9, (2, 16)).astype(np.int64)},
+          "final_norm": rng.standard_normal(16).astype(np.float32)}
+    p1 = {**p0, "final_norm": p0["final_norm"] * np.float32(1.5)}
+    kw = dict(async_write=False, use_fingerprints=True, chunk_bytes=256)
+    mgrs = {"jax": JaxManager(str(tmp_path / "j"), "toy", JaxPolicy(
+                packed_fingerprints=False, keep=10, **kw)),
+            "per_leaf": CheckpointManager(str(tmp_path / "t"), "toy",
+                                          CheckpointPolicy(
+                                              packed_fingerprints=False, **kw)),
+            "packed": CheckpointManager(str(tmp_path / "p"), "toy",
+                                        CheckpointPolicy(**kw))}
+    got = {}
+    for name, m in mgrs.items():
+        reps = []
+        for step, p in ((0, p0), (1, p1)):
+            p = p if name == "jax" else params_from_jax(p, "cpu")
+            r = m.save(step, p, {})
+            reps.append({k: getattr(r, k) for k in (
+                "layers_built", "layers_injected", "chunks_written",
+                "chunks_prefiltered", "bytes_d2h", "bytes_serialized")})
+        stats = {}
+        pay = m._payloads(p0 if name == "jax" else params_from_jax(p0, "cpu"),
+                          {}, 2)
+        fps = m._compute_fps(pay, stats)
+        n_leaves = sum(len(t) for t in pay.values())
+        got[name] = (reps, {k: v.tolist() for k, v in fps.items()},
+                     stats["bytes_d2h"],
+                     {k: v.tolist() for k, v in m._last_fps.items()})
+        assert stats["device_dispatches"] == (
+            1 if name == "packed" else n_leaves)
+    assert got["per_leaf"] == got["jax"] == got["packed"]

@@ -1,9 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch``, nor ``chip_smoke.py``
-nor ``examples/quickstart_torch.py``, imports the JAX package, JAX or
-ml_dtypes; the serving slice, the follower and the training quickstart run
-in a process where those cannot be imported; and the port's entry points
-refuse to drop to the CPU when no card is present and none was asked
-for."""
+nor the port's examples, imports the JAX package, JAX or ml_dtypes; the
+serving slice, the follower, the training quickstart, the scrub and chaos
+CLIs and the multi-tenant example run in a process where those cannot be
+imported; and the port's entry points refuse to drop to the CPU when no
+card is present and none was asked for."""
 import ast
 import os
 import subprocess
@@ -22,10 +22,11 @@ BANNED = ("repro", "jax", "jaxlib", "ml_dtypes")
 
 
 QUICKSTART = os.path.join(ROOT, "examples", "quickstart_torch.py")
+MULTITENANT = os.path.join(ROOT, "examples", "serve_multitenant_torch.py")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART]
+    out = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART, MULTITENANT]
     for d, _, files in os.walk(PORT):
         out.extend(os.path.join(d, f) for f in sorted(files)
                    if f.endswith(".py"))
@@ -153,6 +154,40 @@ def test_training_quickstart_runs_with_jax_and_repro_unimportable():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "quickstart OK" in proc.stdout
+
+
+_BLOCKED_STORE_SURFACE = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None
+example = sys.argv[1]
+for argv in (["--soak"], ["--seeds", "0", "--scenarios", "fanout",
+                          "--modes", "bitrot"]):
+    module = "repro_torch.ft.scrub" if argv == ["--soak"] else \
+        "repro_torch.ft.chaos"
+    sys.argv = [module] + argv
+    try:
+        runpy.run_module(module, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (module, e.code)
+sys.argv = [example, "--device", "cpu"]
+runpy.run_path(example, run_name="__main__")
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+"""
+
+
+def test_store_surface_runs_with_jax_and_repro_unimportable():
+    """``python -m repro_torch.ft.scrub --soak``, a one-cell chaos matrix
+    and ``examples/serve_multitenant_torch.py --device cpu``."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_STORE_SURFACE,
+                           MULTITENANT], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "detector catches 100% of seeded bit-rot" in proc.stdout
+    assert "1/1 cells converged" in proc.stdout
+    assert "multitenant OK" in proc.stdout
 
 
 @pytest.fixture

@@ -18,13 +18,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import jax  # noqa: E402
+import ml_dtypes  # noqa: E402
 
 from repro.ckpt import CheckpointManager as JaxManager  # noqa: E402
 from repro.ckpt import CheckpointPolicy as JaxPolicy  # noqa: E402
 from repro.configs import get_smoke_config  # noqa: E402
 from repro.models import init_params  # noqa: E402
 from repro_torch.ckpt import CheckpointManager, CheckpointPolicy  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.convert import params_from_jax, tensor_to_numpy  # noqa: E402
 
 CHUNK = 1024
 
@@ -504,3 +505,80 @@ def test_store_fault_points_fire_as_the_references(saved, tmp_path):
     assert seen[1] == seen[0]
     assert seen[1][0] == [1, 1]
     assert seen[1][1] == ["step-00000000", "step-00000001"]
+
+
+# ---------------------------------------------------------------------------
+# export/import bundles, payload loading, BuildReport.merge
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_export_bundles_equal_and_each_imports_the_others(saved, tmp_path,
+                                                          writer):
+    """``export_image`` of a store written by either package (bf16 leaves
+    included) gives the same bytes in both packages, and each package's
+    ``import_image`` of the other's bundle leaves the same files on disk,
+    which restore to the saved weights."""
+    from repro.core import LayerStore as JStore
+    from repro_torch.core import LayerStore
+    root, jm, *_ = saved
+    src = str(root / writer)
+    tag = jm.tag_of(1)
+    bundle = LayerStore(src, chunk_bytes=CHUNK).export_image("ckpt", tag)
+    assert bundle == JStore(src, chunk_bytes=CHUNK).export_image("ckpt", tag)
+    into_j = JStore(str(tmp_path / "j"), chunk_bytes=CHUNK)
+    into_t = LayerStore(str(tmp_path / "t"), chunk_bytes=CHUNK)
+    assert into_t.import_image(bundle) == into_j.import_image(bundle) == \
+        ("ckpt", tag)
+    assert _tree(into_t.root) == _tree(into_j.root)
+    assert into_t.verify_image("ckpt", tag, deep=True) == []
+    want = JStore(src, chunk_bytes=CHUNK).load_image_payload("ckpt", tag)
+    got = into_t.load_image_payload("ckpt", tag)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        _assert_np_equal_bits(tensor_to_numpy(got[k], ml_dtypes.bfloat16),
+                              want[k])
+
+
+def test_layer_payload_and_inplace_open_as_the_reference(saved):
+    """``load_layer_payload`` returns torch tensors (bf16 records as
+    ``torch.bfloat16``, never through numpy) with the reference's bits;
+    ``open_layer_inplace`` reads the descriptor the reference reads."""
+    from repro.core import LayerStore as JStore
+    from repro_torch.core import LayerStore
+    root, jm, *_ = saved
+    js = JStore(str(root / "jax"), chunk_bytes=CHUNK)
+    ts = LayerStore(str(root / "jax"), chunk_bytes=CHUNK)
+    manifest, _ = ts.read_image("ckpt", jm.tag_of(1))
+    dtypes = set()
+    for lid in manifest.layer_ids:
+        assert ts.open_layer_inplace(lid).to_json() == \
+            js.open_layer_inplace(lid).to_json()
+        layer = ts.open_layer_inplace(lid)
+        got = ts.load_layer_payload(layer)
+        want = js.load_layer_payload(js.read_layer(lid))
+        assert sorted(got) == sorted(want)
+        for k, t in got.items():
+            assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
+            dtypes.add(t.dtype)
+            _assert_np_equal_bits(tensor_to_numpy(t, ml_dtypes.bfloat16),
+                                  want[k])
+    assert torch.bfloat16 in dtypes
+
+
+def test_build_report_merge_is_the_references():
+    from repro.core import BuildReport as JReport
+    from repro_torch.core import BuildReport
+    reps = {}
+    for name, cls in (("jax", JReport), ("torch", BuildReport)):
+        a, b = cls(), cls()
+        for i, k in enumerate(cls._COUNTERS):
+            setattr(a, k, i + 1)
+            setattr(b, k, 10 * i)
+        a.wall_seconds, b.wall_seconds = 0.5, 0.25
+        a.layer_entry("l1")["chunks_written"] = 3
+        b.layer_entry("l1")["chunks_written"] = 4
+        b.layer_entry("l2")["rekeyed"] = 1
+        b.per_layer["l2"]["extra"] = 7
+        a.merge(b)
+        reps[name] = dataclasses.asdict(a)
+    assert reps["torch"] == reps["jax"]
+    assert BuildReport._COUNTERS == JReport._COUNTERS

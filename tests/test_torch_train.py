@@ -499,6 +499,16 @@ def test_checkpoint_policy_has_the_references_fields_and_defaults():
 
 
 def test_per_leaf_fingerprints_are_refused():
-    with pytest.raises(NotImplementedError, match="packed_fingerprints"):
-        CheckpointManager(tempfile.mkdtemp(), "yi-6b",
-                          CheckpointPolicy(packed_fingerprints=False))
+    """No longer refused: ``packed_fingerprints=False`` is the per-leaf
+    baseline, and its save equals the packed one (held against the JAX
+    package in tests/test_torch_fingerprint.py)."""
+    params = {"w": torch.arange(300, dtype=torch.float32)}
+    reports = []
+    for packed in (True, False):
+        mgr = CheckpointManager(tempfile.mkdtemp(), "yi-6b", CheckpointPolicy(
+            packed_fingerprints=packed, use_fingerprints=True,
+            async_write=False, chunk_bytes=256))
+        mgr.save(0, params, {})
+        r = mgr.save(1, {"w": params["w"] * 2}, {})
+        reports.append((r.layers_injected, r.chunks_written, r.bytes_d2h))
+    assert reports[0] == reports[1] and reports[0][0] >= 1
