@@ -9,18 +9,23 @@ spills as ptxas reports them (and fails if ptxas serialised a kernel's
 wgmma, or if one of the SSD scan's kernels spills), and holds each kernel
 against its plain torch version on edge cases: the fingerprint bit-exactly, flash attention (both its f32 and its
 bf16 tensor-core kernel) and the SSD scan within the JAX kernel tests'
-tolerances. It checks the f32 models of each family on the card against
-the CPU, then runs the serving half of the main path
+tolerances. It checks the f32 smoke model of every arch of the registry
+on the card against the CPU, and the MoE dispatch (``moe_dispatch``) at
+full mixtral-8x7b and granite-moe-3b-a800m width, then runs the serving
+half of the main path
 
     save (full, fingerprinted) -> CheckpointFollower.poll -> engine + serve
     -> incremental save -> follower.poll_and_refresh(engine) -> serve
 
-at the full width of yi-6b (dense, 12.1 GB of bf16 weights) and of
-hymba-1.5b (hybrid, 2.8 GB, 4096-token prompts), weights drawn on the card
-from a seeded generator. yi-6b's follower pulls from the trainer's store
+at the full width of yi-6b (dense, its depth cut to ``YI_SERVE_LAYERS``,
+3.8 GB of bf16 weights), mixtral-8x7b (moe, its depth cut to
+``MIXTRAL_LAYERS``, 12.1 GB), minicpm3-4b (mla, all 62 layers, 8.5 GB)
+and hymba-1.5b (hybrid, 2.8 GB, 4096-token prompts), weights drawn on the
+card from a seeded generator. The smart followers
+(yi-6b, mixtral-8x7b, minicpm3-4b) pull from the trainer's store
 into a replica store (the second pull must carry exactly the chunks the
-incremental save wrote), and a blob then rotted at rest in the replica
-must be caught by the follower's verify gate and healed by
+incremental save wrote); on yi-6b a blob then rotted at rest in the
+replica must be caught by the follower's verify gate and healed by
 ``repair_image``. hymba's follower has no live peer: it applies the
 bundles the manager publishes into a registry directory, with no
 negotiation. On every layer of hymba's prefill it then calls
@@ -33,11 +38,11 @@ and f32) and mamba2-130m's scan shape. The SSD scan runs as three CUDA
 kernels a call (chunk state, state passing, chunk scan); its launches
 count calls, and each of the three CUDA kernels is counted as well.
 
-The store's remaining surface rides the same two serving paths. On
+The store's remaining surface rides the same serving paths. On
 yi-6b's tree, ``fp_per_leaf`` runs the per-leaf fingerprint baseline
 (``fingerprint_tree``: one launch per leaf) against the packed table.
-After yi-6b's repair, ``tenants`` forks three tenant images from the
-trainer's step 0 into its store (``CheckpointManager(store=,
+After mixtral-8x7b's refresh, ``tenants`` forks three tenant images from
+the trainer's step 0 into its store (``CheckpointManager(store=,
 base_image=)``, the deltas of ``examples/serve_multitenant.py``), with the
 base's layer ids reused as the DLC rules say, and one tenant saved
 incrementally through the per-leaf path; ``replicate`` fans each tenant to
@@ -93,6 +98,12 @@ FP_OPS_PER_LANE = 9
 # parameter (bf16 param and grad, f32 master, m, v) fit on one card
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 2          # steps before each of the two saves
+# mixtral-8x7b at full width, depth cut: its 32 layers are 93.4 GB of bf16
+# params; 4 layers are 12.13 GB, the size of yi-6b's full tree
+MIXTRAL_LAYERS = 4
+# yi-6b's serving path at full width, depth cut to keep the whole script
+# well inside its time limit; mixtral's path carries a 12.1 GB tree
+YI_SERVE_LAYERS = 8
 CARD_SHELL = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
 
@@ -576,14 +587,14 @@ def phase_seeded_shapes(dev) -> dict:
 
 def phase_reference_check(dev) -> None:
     """The port's models on the card against the same models on the CPU, on
-    a small f32 input, one arch of each family the port serves (the CPU
-    path is held against the JAX package by the tests). TF32 is off for f32
-    matmuls here and below."""
-    from repro_torch.configs import get_smoke_config
+    a small f32 input, every arch of the registry at its smoke config (the
+    CPU path is held against the JAX package by the tests). TF32 is off for
+    f32 matmuls here and below."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
     from repro_torch.models import init_params, prefill
     from repro_torch.serve import Engine
     errs = {}
-    for arch in ("yi-6b", "mamba2-130m", "hymba-1.5b"):
+    for arch in ARCH_IDS:
         cfg = get_smoke_config(arch).replace(param_dtype="float32",
                                              compute_dtype="float32")
         params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
@@ -606,6 +617,66 @@ def phase_reference_check(dev) -> None:
     train = _train_step_card_vs_cpu(dev)
     log("reference_check", prefill_max_abs_err=errs, tol=1e-4,
         tokens_equal=True, train_step=train)
+
+
+MOE_TOL = 1e-4     # f32 moe_ffn, card against CPU (TF32 off)
+
+
+def phase_moe_dispatch(dev) -> list:
+    """``moe_ffn`` at full width on layer 0 of mixtral-8x7b (8 experts,
+    top-2, expert d_ff 14336) and one layer of granite-moe-3b-a800m (40
+    experts, top-8, expert d_ff 512), f32 weights drawn on the card as the
+    moe block draws them, at a prefill's T (4 x 128 tokens) and a decode
+    step's (4), on the card and on the CPU: ``dispatch_indices``' slot,
+    keep and token must be identical and the outputs within ``MOE_TOL``.
+    The drops are logged: at decode the capacity is 1, so most of a step's
+    assignments drop, as in the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import init_moe_block
+    from repro_torch.models.moe import dispatch_indices, moe_ffn, route
+    rows = []
+    for arch in ("mixtral-8x7b", "granite-moe-3b-a800m"):
+        cfg = get_config(arch).replace(param_dtype="float32")
+        g = torch.Generator(device=dev).manual_seed(7)
+        block = init_moe_block(cfg, g, dev, 1)
+        weights = {k: block[k][0] for k in ("router", "w_gate", "w_up",
+                                             "w_down")}
+        del block
+        on_cpu = {k: v.cpu() for k, v in weights.items()}
+        E, k = cfg.n_experts, cfg.top_k
+        for T in (4 * 128, 4):
+            x = torch.randn((T, cfg.d_model), generator=g, device=dev)
+            capacity = max(1, int(T * k * cfg.capacity_factor / E))
+            got = {}
+            for where, xx, w in (("card", x, weights),
+                                 ("cpu", x.cpu(), on_cpu)):
+                with torch.inference_mode():
+                    _, experts, _ = route(xx, w["router"], k)
+                    idx = dispatch_indices(experts, E, capacity)
+                    y, aux = moe_ffn(xx, w["router"], w["w_gate"], w["w_up"],
+                                     w["w_down"], top_k=k,
+                                     capacity_factor=cfg.capacity_factor,
+                                     act=cfg.act)
+                got[where] = ([t.cpu() for t in idx], y.cpu(), float(aux))
+            (i_dev, y_dev, a_dev), (i_cpu, y_cpu, a_cpu) = got["card"], \
+                got["cpu"]
+            check(all(torch.equal(a, b) for a, b in zip(i_dev, i_cpu)),
+                  f"{arch} T {T}: slot, keep or token differ, card vs CPU")
+            err = float((y_dev - y_cpu).abs().max())
+            check(err <= MOE_TOL, f"{arch} T {T}: moe_ffn card vs CPU "
+                  f"{err} > {MOE_TOL}")
+            check(abs(a_dev - a_cpu) <= 1e-5, f"{arch} T {T}: aux "
+                  f"{a_dev} != {a_cpu}")
+            keep = i_cpu[1]
+            row = dict(model=arch, T=T, experts=E, top_k=k,
+                       capacity=capacity, assignments=T * k,
+                       dropped=int((~keep).sum()), max_abs_err=err,
+                       tol=MOE_TOL, aux=a_cpu, dispatch_equal=True)
+            rows.append(row)
+            log("moe_dispatch", **row)
+        del weights, on_cpu
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _train_step_card_vs_cpu(dev) -> dict:
@@ -719,7 +790,7 @@ def phase_kernel_path(cfg, params, prompts, dev) -> dict:
                                         _max_err(hs, h_model))
             if i == 0:
                 layer0 = {"qkv": (qt, kt, vt), "scan": scan}
-            x, _ = apply_hybrid_block(cfg, p, x, positions)
+            x, _, _ = apply_hybrid_block(cfg, p, x, positions)
     torch.cuda.synchronize()
     launches = {"flash_attention": flash_attention.launches,
                 "ssd_scan": ssd.launches}
@@ -784,7 +855,7 @@ def _pull_log(pull) -> dict:
 
 def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
                  prompt_len: int, new_tokens: int, edit: str,
-                 follower: str) -> dict:
+                 edit_layer: int, follower: str, extras=()) -> dict:
     """The main path through the entry points a user calls:
 
         save -> follower poll -> engine + serve -> incremental save
@@ -793,12 +864,15 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
     ``follower="smart"`` pulls from the trainer's store (one have-set
     negotiation, only missing chunks); ``"passive"`` has no live peer and
     applies the bundles the manager publishes into a registry directory,
-    with no negotiation. Between the saves, one layer of the leaf ``edit``
-    and ``final_norm`` change on the device, and the update must name
-    exactly those two leaves. After the main path, the smart follower's
-    verify gate is shown to catch a blob rotted at rest in the replica and
-    to heal it from the trainer's store. Returns the counts the caller
-    checks against the kernels, the engine and the prompts."""
+    with no negotiation. Between the saves, layer ``edit_layer`` of the
+    leaf ``edit`` and ``final_norm`` change on the device, and the update
+    must name exactly those two leaves. ``extras`` adds the store's
+    sub-paths on the same stores: "fp_per_leaf" before the main path;
+    after it, "repair" (a smart follower's verify gate catches a blob
+    rotted at rest in the replica and heals it from the trainer's store),
+    "tenants" (tenants and ``replicate``) and "scrub" (a passive
+    follower's replica). Returns the counts the caller checks against the
+    kernels, the engine and the prompts."""
     from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
     from repro_torch.core import tree_pack_index
     from repro_torch.kernels.fingerprint.ops import fingerprint_leaves
@@ -822,7 +896,7 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
         _, total_chunks, _ = tree_pack_index(union, chunk_bytes)
         if dev.type == "cuda":
             out["kernel"] = phase_fingerprint_full(union, chunk_bytes)
-            if smart:
+            if "fp_per_leaf" in extras:
                 out["fp_per_leaf"] = phase_fp_per_leaf(union, chunk_bytes)
 
         # ---- the main path: launches are counted from here to the refresh
@@ -878,7 +952,8 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
 
         # a few leaves change on the device: one layer of ``edit``, and
         # final_norm
-        layer = min(3, cfg.n_layers - 1)
+        layer = edit_layer
+        check(layer < cfg.n_layers, f"edit layer {layer} of {cfg.n_layers}")
         params1, leaf = _edit_leaf(params, edit, layer)
         params1["final_norm"] = params["final_norm"] * 1.5
         layer_bytes = leaf[layer].numel() * leaf.element_size()
@@ -955,12 +1030,13 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
             written_chunks=r1.chunks_written, written_bytes=written_bytes,
             tokens_moved=int((res2.tokens != res.tokens).sum()), **pull)
 
-        if smart:
+        if "repair" in extras:
             out["repair"] = _verify_and_repair(cfg, mgr, fol, eng, params,
                                                edit, prompts, new_tokens, res)
+        if "tenants" in extras:
             out.update(_tenants_and_replicate(cfg, mgr, fol, params, dev,
                                               prompts, new_tokens))
-        else:
+        if "scrub" in extras:
             out["scrub"] = _scrub_and_heal(cfg, mgr, fol, dev, prompts,
                                            new_tokens, res_ref.tokens)
 
@@ -972,8 +1048,8 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
             step = lambda: decode_step(cfg, eng.params, cache, tok, prompt_len)
             dec_ms = _host_ms(step, 5, dev)
             dec_ops = _count_ops(step)
-        log("split", prefill_ms=pf_ms, decode_step_ms=dec_ms, batch=batch,
-            prompt_len=prompt_len, decode_step_ops=dec_ops,
+        log("split", model=cfg.name, prefill_ms=pf_ms, decode_step_ms=dec_ms,
+            batch=batch, prompt_len=prompt_len, decode_step_ops=dec_ops,
             ms_per_op=dec_ms / dec_ops)
     finally:
         for d in (tmp, rep, reg):
@@ -1540,13 +1616,17 @@ def phase_train(dev, layers: int, steps: int) -> dict:
     return out
 
 
-def run_model(arch: str, dev, edit: str, batch: int, prompt_len: int,
-              new_tokens: int, follower: str) -> dict:
-    """One model at full width, weights drawn on the card from a seeded
-    generator, through ``serving_path``; checks the fingerprint launches."""
+def run_model(arch: str, dev, edit: str, edit_layer: int, batch: int,
+              prompt_len: int, new_tokens: int, follower: str, extras=(),
+              layers=None) -> dict:
+    """One model at full width (depth cut to ``layers`` when given), weights
+    drawn on the card from a seeded generator, through ``serving_path``;
+    checks the fingerprint launches."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
@@ -1555,7 +1635,8 @@ def run_model(arch: str, dev, edit: str, batch: int, prompt_len: int,
         d_model=cfg.d_model, dtype=cfg.param_dtype)
     out = serving_path(cfg, params, dev, chunk_bytes=1 << 20, batch=batch,
                        prompt_len=prompt_len, new_tokens=new_tokens,
-                       edit=edit, follower=follower)
+                       edit=edit, edit_layer=edit_layer, follower=follower,
+                       extras=extras)
     check(out["save2_launches"] == 1,
           f"incremental save made {out['save2_launches']} kernel launches")
     check(out["launches"] >= 1, "the main path never launched the kernel")
@@ -1591,22 +1672,39 @@ def main() -> int:
     phase_flash_edges(dev)
     phase_ssd_edges(dev)
     phase_reference_check(dev)
+    phase_moe_dispatch(dev)
 
-    # slice 1: the dense family at full width
-    yi = run_model("yi-6b", dev, edit="blocks/wk", batch=4, prompt_len=128,
-                   new_tokens=32, follower="smart")
-    fp, fp_launches = yi["kernel"], yi["launches"]
-    store_paths = {"fp_per_leaf": yi["fp_per_leaf"]["launches"],
-                   "tenants": yi["tenants"]["launches"],
-                   "replicate": yi["replicate"]["launches"]}
+    # slice 1: the dense family at full width, depth cut
+    yi = run_model("yi-6b", dev, edit="blocks/wk", edit_layer=3, batch=4,
+                   prompt_len=128, new_tokens=32, follower="smart",
+                   extras=("fp_per_leaf", "repair"), layers=YI_SERVE_LAYERS)
+    fp_dense, fp_dense_launches = yi["kernel"], yi["launches"]
+    store_paths = {"fp_per_leaf": yi["fp_per_leaf"]["launches"]}
     per_leaf = yi["fp_per_leaf"]
     del yi
     torch.cuda.empty_cache()
 
+    # slice 8: the moe family (depth cut) with the tenants forked from its
+    # base, and the mla family at full depth
+    mx = run_model("mixtral-8x7b", dev, edit="blocks/router", edit_layer=1,
+                   batch=4, prompt_len=128, new_tokens=32, follower="smart",
+                   extras=("tenants",), layers=MIXTRAL_LAYERS)
+    fp, fp_launches = mx["kernel"], mx["launches"]
+    store_paths.update(tenants=mx["tenants"]["launches"],
+                       replicate=mx["replicate"]["launches"])
+    del mx
+    torch.cuda.empty_cache()
+    mc = run_model("minicpm3-4b", dev, edit="blocks/wkv_b", edit_layer=3,
+                   batch=4, prompt_len=128, new_tokens=32, follower="smart")
+    fp_mla_launches = mc["launches"]
+    del mc
+    torch.cuda.empty_cache()
+
     # slice 2: the hybrid family at full width; then the two kernels' own
     # entry points on the tensors its prefill computes
-    hy = run_model("hymba-1.5b", dev, edit="blocks/ssm/w_x", batch=2,
-                   prompt_len=4096, new_tokens=32, follower="passive")
+    hy = run_model("hymba-1.5b", dev, edit="blocks/ssm/w_x", edit_layer=3,
+                   batch=2, prompt_len=4096, new_tokens=32,
+                   follower="passive", extras=("scrub",))
     cfg = hy["cfg"]
     path = phase_kernel_path(cfg, hy["engine"].params, hy["prompts"], dev)
     full = phase_kernel_full(path["layer0"], cfg)
@@ -1625,13 +1723,19 @@ def main() -> int:
                   "src/repro_torch/kernels/fingerprint/csrc/fingerprint.cu",
                   "src/repro/kernels/fingerprint/kernel.py:44",
                   fp_launches, dict(fp, shape=[fp["rows"]],
-                                       model="yi-6b", library_ms=None))
+                                       model="mixtral-8x7b",
+                                       library_ms=None))
     fp_row.update(check="bit-exact", tree_bytes=fp["tree_bytes"],
+                  launches_dense_path=fp_dense_launches,
                   launches_hybrid_path=fp_hybrid_launches,
+                  launches_mla_path=fp_mla_launches,
                   launches_train_path=tr["launches"],
                   launches_store_paths=store_paths,
                   per_leaf={k: per_leaf[k] for k in (
                       "leaves", "per_leaf_ms", "packed_ms")},
+                  dense_tree={k: fp_dense[k] for k in (
+                      "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by",
+                      "tree_bytes", "rows")},
                   train_tree={k: tr["kernel"][k] for k in (
                       "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by",
                       "tree_bytes", "rows")})

@@ -4,10 +4,8 @@ variants are separate IMAGES forked from one base
 (``CheckpointManager(image=..., base_image=..., store=...)``), sharing base
 layers in one store; each tenant costs O(its adapter) in storage, and
 ``replicate()`` to serving replicas that already hold the base ships ONLY
-the adapter delta, which the ``FanoutStats`` printed below show.
-
-It runs yi-6b's smoke config (the dense family): the JAX example's
-mixtral-8x7b needs the moe family, which the port does not have yet.
+the adapter delta, which the ``FanoutStats`` printed below show. It runs
+mixtral-8x7b's smoke config, as the JAX example does.
 
     PYTHONPATH=src python examples/serve_multitenant_torch.py           # card
     PYTHONPATH=src python examples/serve_multitenant_torch.py --device cpu
@@ -51,7 +49,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_smoke_config("yi-6b")
+    cfg = get_smoke_config("mixtral-8x7b")
     base = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                        device)
     root = tempfile.mkdtemp(prefix="lc_tenants_torch_")

@@ -1,16 +1,26 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here (the
-dense yi-6b, the ssm mamba2-130m and the hybrid hymba-1.5b so far; the moe
-and mla archs of ``repro.configs`` come later)."""
+ten archs of ``repro/configs/registry.py``, in its order)."""
 from __future__ import annotations
 
 from typing import List
 
 from ..models.config import ModelConfig
-from . import hymba_1_5b, mamba2_130m, yi_6b
+from . import (command_r_35b, gemma_2b, granite_moe_3b, hymba_1_5b,
+               mamba2_130m, minicpm3_4b, mixtral_8x7b, musicgen_medium,
+               pixtral_12b, yi_6b)
 
-_MODULES = {m.ARCH_ID: m for m in (yi_6b, mamba2_130m, hymba_1_5b)}
+_MODULES = {
+    m.ARCH_ID: m
+    for m in (pixtral_12b, mamba2_130m, granite_moe_3b, mixtral_8x7b,
+              gemma_2b, command_r_35b, minicpm3_4b, yi_6b,
+              musicgen_medium, hymba_1_5b)
+}
 
 ARCH_IDS: List[str] = list(_MODULES)
+
+
+def list_archs() -> List[str]:
+    return list(ARCH_IDS)
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -1,19 +1,22 @@
 """Per-family blocks: init, prefill apply, decode step (torch port of the
-dense, ssm and hybrid families in ``repro/models/blocks.py``; moe and mla
-are not ported yet).
+dense, moe, mla, ssm and hybrid families in ``repro/models/blocks.py``).
 
 Every family exposes, through the ``FAMILY_*`` tables:
     init(cfg, generator, device, n_layers)    -> params, layer-stacked
-    apply(cfg, p, x, positions, collect_cache) -> (x', cache_entry|None)
+    apply(cfg, p, x, positions, collect_cache) -> (x', aux, cache_entry|None)
     decode(cfg, p, cache, x_t, pos)            -> (cache', x_t')
-and ``init_layer_cache(cfg, batch, cache_len, device)``.
+and ``init_layer_cache(cfg, batch, cache_len, device)``. ``aux`` is a 0-d
+f32 tensor: the moe block's router load-balancing loss, zero elsewhere.
 
 Weights are head-structured (d, H, Dh) / (H, Dh, d). Caches hold ungrouped
-K/V (KVH heads); SWA archs use a ring buffer of ``window`` slots. Decode
-updates the K/V cache tensors IN PLACE (the JAX code returns new arrays; the
-port writes one slot instead of copying the cache every step) and returns
-the same tensors; the SSM states come back as new tensors, as in JAX, and
-the caller writes them into its stacked cache.
+K/V (KVH heads); SWA archs use a ring buffer of ``window`` slots; the mla
+block caches its (kv_lora_rank + rope) latent. Decode updates the K/V and
+latent cache tensors IN PLACE (the JAX code returns new arrays; the port
+writes one slot instead of copying the cache every step) and returns the
+same tensors; the SSM states come back as new tensors, as in JAX, and the
+caller writes them into its stacked cache. The moe block runs the
+reference's non-sharded branch only (``_moe_local`` and the psum path wait
+for the port's sharding).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from .attention import attention, attention_decode
 from .config import ModelConfig
 from .layers import (apply_rope, as_torch_dtype, dense, proj_heads, rms_norm,
                      trunc_normal, unproj_heads)
+from .moe import moe_ffn
 from .ssm import (causal_conv, causal_conv_step, ssd_chunked,
                   ssd_decode_step)
 
@@ -153,6 +157,11 @@ def _ones(shape, device) -> torch.Tensor:
     return torch.ones(shape, dtype=torch.float32, device=device)
 
 
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    """The aux loss of a block that has none: a 0-d f32 zero."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def init_dense_block(cfg: ModelConfig, generator: torch.Generator, device,
                      n_layers: int) -> Dict:
     """The dense block's params with a leading ``n_layers`` dim (the JAX
@@ -177,7 +186,7 @@ def apply_dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     if collect_cache:
         C = cfg.cache_len(x.shape[1])
         cache = {"k": _ring_tail(k, C), "v": _ring_tail(v, C)}
-    return x, cache
+    return x, _no_aux(x), cache
 
 
 def decode_dense_block(cfg: ModelConfig, p: Dict, cache: Dict,
@@ -187,6 +196,173 @@ def decode_dense_block(cfg: ModelConfig, p: Dict, cache: Dict,
     x_t = x_t + a
     h = rms_norm(x_t, p["mlp_norm"], cfg.rms_eps)
     x_t = x_t + _mlp(cfg, p, h)
+    return cache, x_t
+
+
+# ==================================================================== moe
+def init_moe_block(cfg: ModelConfig, generator: torch.Generator, device,
+                   n_layers: int) -> Dict:
+    d, L = cfg.d_model, n_layers
+    E, fe = cfg.n_experts, cfg.d_ff_expert
+    dt = as_torch_dtype(cfg.param_dtype)
+    return {
+        "attn_norm": _ones((L, d), device),
+        "mlp_norm": _ones((L, d), device),
+        **_attn_init(cfg, generator, device, n_layers),
+        "router": trunc_normal((L, d, E), d ** -0.5, torch.float32,
+                               generator, device),
+        "w_gate": trunc_normal((L, E, d, fe), d ** -0.5, dt, generator,
+                               device),
+        "w_up": trunc_normal((L, E, d, fe), d ** -0.5, dt, generator, device),
+        "w_down": trunc_normal((L, E, fe, d), fe ** -0.5, dt, generator,
+                               device),
+    }
+
+
+def _moe(cfg: ModelConfig, p: Dict, h2d: torch.Tensor):
+    return moe_ffn(h2d, p["router"], p["w_gate"], p["w_up"], p["w_down"],
+                   top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                   act=cfg.act)
+
+
+def apply_moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                    positions: torch.Tensor, collect_cache: bool = False):
+    """The reference's non-sharded branch: all B*S tokens are routed
+    together, into one capacity buffer."""
+    B, S, d = x.shape
+    h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+    a, k, v = _self_attention(cfg, p, h, positions)
+    x = x + a
+    h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
+    y, aux = _moe(cfg, p, h.reshape(B * S, d))
+    x = x + y.reshape(B, S, d)
+    cache = None
+    if collect_cache:
+        C = cfg.cache_len(S)
+        cache = {"k": _ring_tail(k, C), "v": _ring_tail(v, C)}
+    return x, aux, cache
+
+
+def decode_moe_block(cfg: ModelConfig, p: Dict, cache: Dict,
+                     x_t: torch.Tensor, pos: int):
+    h = rms_norm(x_t, p["attn_norm"], cfg.rms_eps)
+    cache, a = _attn_decode(cfg, p, cache, h, pos)
+    x_t = x_t + a
+    h = rms_norm(x_t, p["mlp_norm"], cfg.rms_eps)
+    y, _ = _moe(cfg, p, h)
+    return cache, x_t + y
+
+
+# ==================================================================== mla
+def init_mla_block(cfg: ModelConfig, generator: torch.Generator, device,
+                   n_layers: int) -> Dict:
+    d, L, H = cfg.d_model, n_layers, cfg.n_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = as_torch_dtype(cfg.param_dtype)
+
+    def head(shape, std):
+        return trunc_normal((L,) + shape, std, dt, generator, device)
+
+    return {
+        "attn_norm": _ones((L, d), device),
+        "mlp_norm": _ones((L, d), device),
+        "wq_a": head((d, qr), d ** -0.5),
+        "q_norm": _ones((L, qr), device),
+        "wq_b": head((qr, H, nope + rope), qr ** -0.5),
+        "wkv_a": head((d, kr + rope), d ** -0.5),
+        "kv_norm": _ones((L, kr), device),
+        "wkv_b": head((kr, H, nope + vh), kr ** -0.5),
+        "wo": head((H, vh, d), (H * vh) ** -0.5),
+        **_mlp_init(cfg, generator, device, n_layers),
+    }
+
+
+def _mla_qkv(cfg: ModelConfig, p: Dict, h: torch.Tensor,
+             positions: torch.Tensor):
+    """-> q (B,S,H,nope+rope), c_kv (B,S,kr) normed, k_rope (B,S,rope)."""
+    nope = cfg.qk_nope_dim
+    qa = rms_norm(dense(h, p["wq_a"]), p["q_norm"], cfg.rms_eps)
+    q = proj_heads(qa, p["wq_b"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    kv_a = dense(h, p["wkv_a"])
+    c_kv = rms_norm(kv_a[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.rms_eps)
+    k_rope = apply_rope(kv_a[..., cfg.kv_lora_rank:], positions,
+                        cfg.rope_theta)
+    return q, c_kv, k_rope
+
+
+def apply_mla_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                    positions: torch.Tensor, collect_cache: bool = False):
+    """Keys and values expanded from the latent; the attention is the
+    plain one (q/k dim nope+rope, v dim v_head_dim), as in the reference.
+    The cache holds the latent of all S positions (no ring)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+    q, c_kv, k_rope = _mla_qkv(cfg, p, h, positions)
+    kv = proj_heads(c_kv, p["wkv_b"])                       # (B,S,H,nope+vh)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope)],
+                  dim=-1)
+    o = attention(q, k, v, causal=True, window=cfg.window,
+                  impl=cfg.attn_impl, kv_block=cfg.kv_block,
+                  q_block=cfg.q_block, scale=(nope + rope) ** -0.5,
+                  score_dtype=cfg.score_dtype)
+    x = x + unproj_heads(o, p["wo"])
+    h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
+    x = x + _mlp(cfg, p, h)
+    cache = None
+    if collect_cache:
+        cache = {"c_kv": c_kv, "k_rope": k_rope}
+    return x, _no_aux(x), cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
+                   device) -> Dict:
+    dt = as_torch_dtype(cfg.compute_dtype)
+    return {"c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                                dtype=dt, device=device),
+            "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                                  dtype=dt, device=device)}
+
+
+def decode_mla_block(cfg: ModelConfig, p: Dict, cache: Dict,
+                     x_t: torch.Tensor, pos: int):
+    """Absorbed MLA decode: attention runs in latent space, in f32 as in
+    the reference; the cache is the (kv_lora_rank + rope) latent, updated
+    in place."""
+    B, d = x_t.shape
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    h = rms_norm(x_t, p["attn_norm"], cfg.rms_eps)[:, None]     # (B,1,d)
+    pos_b = torch.full((B, 1), pos, device=x_t.device)
+    q, c_kv, k_rope = _mla_qkv(cfg, p, h, pos_b)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]               # (B,1,H,·)
+    C = cache["c_kv"].shape[1]
+    slot = pos % C
+    cache["c_kv"][:, slot:slot + 1] = c_kv
+    cache["k_rope"][:, slot:slot + 1] = k_rope
+    c_cache = cache["c_kv"].float()
+    r_cache = cache["k_rope"].float()
+    # absorb W_UK into q:   q_abs = q_nope @ W_UK^T  -> latent space
+    w_uk = p["wkv_b"][..., :nope].float()                       # (kr,H,nope)
+    w_uv = p["wkv_b"][..., nope:].float()                       # (kr,H,vh)
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk)
+    s = torch.einsum("bqhr,bcr->bhqc", q_abs, c_cache) + \
+        torch.einsum("bqhr,bcr->bhqc", q_rope.float(), r_cache)
+    s = s * (nope + rope) ** -0.5
+    cpos = _cache_positions(C, pos, x_t.device)
+    s = s.masked_fill(~(cpos <= pos), -1e30)
+    pw = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqc,bcr->bqhr", pw, c_cache)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
+    y = unproj_heads(o.to(x_t.dtype), p["wo"])[:, 0]
+    x_t = x_t + y
+    h2 = rms_norm(x_t, p["mlp_norm"], cfg.rms_eps)
+    x_t = x_t + _mlp(cfg, p, h2)
     return cache, x_t
 
 
@@ -307,7 +483,7 @@ def apply_ssm_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                     positions: torch.Tensor, collect_cache: bool = False):
     h = rms_norm(x, p["norm"], cfg.rms_eps)
     y, cache = apply_ssm_core(cfg, p, h, collect_cache)
-    return x + y, cache
+    return x + y, _no_aux(x), cache
 
 
 def ssm_cache_init(cfg: ModelConfig, batch: int, device,
@@ -387,7 +563,7 @@ def apply_hybrid_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     if collect_cache:
         C = cfg.cache_len(x.shape[1])
         cache = {"k": _ring_tail(k, C), "v": _ring_tail(v, C), **ssm_cache}
-    return x, cache
+    return x, _no_aux(x), cache
 
 
 def hybrid_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
@@ -412,20 +588,24 @@ def decode_hybrid_block(cfg: ModelConfig, p: Dict, cache: Dict,
 
 
 # ============================================================== dispatch
-FAMILY_INIT = {"dense": init_dense_block, "ssm": init_ssm_block,
+FAMILY_INIT = {"dense": init_dense_block, "moe": init_moe_block,
+               "mla": init_mla_block, "ssm": init_ssm_block,
                "hybrid": init_hybrid_block}
-FAMILY_APPLY = {"dense": apply_dense_block, "ssm": apply_ssm_block,
+FAMILY_APPLY = {"dense": apply_dense_block, "moe": apply_moe_block,
+                "mla": apply_mla_block, "ssm": apply_ssm_block,
                 "hybrid": apply_hybrid_block}
-FAMILY_DECODE = {"dense": decode_dense_block, "ssm": decode_ssm_block,
+FAMILY_DECODE = {"dense": decode_dense_block, "moe": decode_moe_block,
+                 "mla": decode_mla_block, "ssm": decode_ssm_block,
                  "hybrid": decode_hybrid_block}
 
 
 def init_layer_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _kv_cache_init(cfg, batch, cache_len, device)
+    if cfg.family == "mla":
+        return mla_cache_init(cfg, batch, cache_len, device)
     if cfg.family == "ssm":
         return ssm_cache_init(cfg, batch, device)
     if cfg.family == "hybrid":
         return hybrid_cache_init(cfg, batch, cache_len, device)
-    raise NotImplementedError(
-        f"the torch port has no {cfg.family!r} block yet")
+    raise ValueError(cfg.family)

@@ -1,6 +1,5 @@
 """ModelConfig — one dataclass describes every architecture in the zoo
-(a copy of ``repro/models/config.py``, so configs copy verbatim; the port
-runs the dense, ssm and hybrid families so far).
+(a copy of ``repro/models/config.py``, so configs copy verbatim).
 
 Families:
   dense   — standard decoder (GQA/MQA attention + gated MLP)

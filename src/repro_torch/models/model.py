@@ -1,6 +1,6 @@
 """Top-level model: embedding, the layer stack, loss, prefill, decode
-(torch port of ``repro/models/model.py`` for the dense, ssm and hybrid
-families).
+(torch port of ``repro/models/model.py``, for the dense, moe, mla, ssm and
+hybrid families).
 
 Parameters are layer-stacked, as in the JAX package: every block leaf has a
 leading ``n_layers`` dim, and the layers run as a loop over that dim. Param
@@ -31,7 +31,7 @@ LOSS_CHUNK = 512
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILY_INIT:
         raise NotImplementedError(
-            f"the torch port runs the {sorted(FAMILY_INIT)} families so far, "
+            f"the torch port runs the {sorted(FAMILY_INIT)} families, "
             f"not {cfg.family!r}")
 
 
@@ -138,18 +138,21 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 def backbone(cfg: ModelConfig, params: Dict, x: torch.Tensor,
              positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Apply all blocks. Returns (hidden, aux_loss_sum); the dense, ssm and
-    hybrid blocks add no auxiliary loss, so the sum is a 0-d f32 zero."""
+    """Apply all blocks. Returns (hidden, aux_loss_sum): each layer's aux
+    (the moe router's load-balancing loss; zero in the other families)
+    added in f32 inside the rematerialized layer, as the JAX scan carries
+    it."""
     _check_family(cfg)
     apply = FAMILY_APPLY[cfg.family]
 
-    def layer(h, p):
-        return apply(cfg, p, h, positions)[0]
+    def layer(h, aux, p):
+        h, a, _ = apply(cfg, p, h, positions)
+        return h, aux + a
 
     layer = _remat(cfg, layer)
-    for p in _unstack(params["blocks"]):
-        x = layer(x, p)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in _unstack(params["blocks"]):
+        x, aux = layer(x, aux, p)
     return rms_norm(x, params["final_norm"], cfg.rms_eps), aux
 
 
@@ -200,19 +203,22 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor]
     return loss, {"ce": ce, "aux": aux}
 
 
-def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
+def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[Dict, torch.Tensor]:
     """Full-sequence forward that also builds the decode cache.
+    ``prefix_embeds`` (B, P, d), a modality frontend's output, takes the
+    first P positions.
 
     Returns (cache stacked over layers, last-position logits (B, vocab))."""
     _check_family(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, prefix_embeds)
     caches = []
     for p in _unstack(params["blocks"]):
-        x, cache = FAMILY_APPLY[cfg.family](cfg, p, x, positions,
-                                            collect_cache=True)
+        x, _, cache = FAMILY_APPLY[cfg.family](cfg, p, x, positions,
+                                               collect_cache=True)
         caches.append(cache)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = dense(x[:, -1], lm_head_weight(cfg, params)) \

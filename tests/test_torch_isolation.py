@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch``, nor ``chip_smoke.py``
 nor the port's examples, imports the JAX package, JAX or ml_dtypes; the
-serving slice, the follower, the training quickstart, the scrub and chaos
-CLIs and the multi-tenant example run in a process where those cannot be
-imported; and the port's entry points refuse to drop to the CPU when no
+serving slice, the moe and mla families, the follower, the training
+quickstart, the scrub and chaos CLIs and the multi-tenant example (on
+mixtral-8x7b) run in a process where those cannot be imported; and the port's entry points refuse to drop to the CPU when no
 card is present and none was asked for."""
 import ast
 import os
@@ -90,6 +90,38 @@ def test_slice_runs_with_jax_and_repro_unimportable():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "slice-ok (2, 4)" in proc.stdout
+
+
+_BLOCKED_FAMILIES = r"""
+import sys
+for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import init_params, prefill
+from repro_torch.serve import Engine
+for arch in ("mixtral-8x7b", "minicpm3-4b"):
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12))
+    _, logits = prefill(cfg, params, torch.as_tensor(prompts))
+    assert logits.shape == (2, cfg.vocab) and bool(logits.isfinite().all())
+    res = Engine(cfg, params, max_len=24, device="cpu").generate(
+        prompts.astype(np.int32), 6)
+    print(arch, cfg.family, res.tokens.shape)
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+"""
+
+
+def test_moe_and_mla_serve_with_jax_and_repro_unimportable():
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_FAMILIES], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "mixtral-8x7b moe (2, 6)" in proc.stdout
+    assert "minicpm3-4b mla (2, 6)" in proc.stdout
 
 
 _BLOCKED_FOLLOWER = r"""

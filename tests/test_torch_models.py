@@ -155,9 +155,20 @@ def test_config_copy_matches_jax():
 
 
 def test_other_families_are_refused():
-    cfg = port_smoke("yi-6b").replace(family="moe")
-    with pytest.raises(NotImplementedError):
+    """A family the reference does not know ("rnn") is refused by every
+    entry point; the reference's five are all ported."""
+    from repro.models.blocks import FAMILY_INIT as JAX_FAMILIES
+    from repro_torch.models.blocks import FAMILY_INIT
+    assert sorted(FAMILY_INIT) == sorted(JAX_FAMILIES)
+    cfg = port_smoke("yi-6b").replace(family="rnn")
+    params = tm.init_params(port_smoke("yi-6b"), torch.Generator(), "cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="rnn"):
         tm.init_params(cfg, torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="rnn"):
+        tm.prefill(cfg, params, toks)
+    with pytest.raises(NotImplementedError, match="rnn"):
+        tm.decode_step(cfg, params, {}, toks[:, 0], 0)
 
 
 @pytest.mark.parametrize("impl", ["blockwise", "banded"])
