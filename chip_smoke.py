@@ -53,13 +53,27 @@ the follower's replica whole and in 256 MiB slices, finds exactly one
 blob rotted at rest with its attribution, heals it with ``repair_image``
 from the trainer's store and serves the healed head.
 
+On yi-6b's path, too: ``fp_tree`` runs the entry point
+``kernels.fingerprint.ops.fingerprint_tree`` (one launch, bit-equal to
+the packed and plain tables), ``specs`` holds ``param_specs`` against the
+served tree, ``steps`` decodes greedily through ``make_prefill_step`` and
+``make_decode_step`` (the tokens of ``Engine.generate``), and ``sample``
+checks sampled decoding (seeds reproduce; T 1e-4 is greedy where the top
+two logits are apart). Before the serving paths, ``watchdog`` trains with
+``launch.train --watchdog-s 60`` and ``examples`` runs
+``examples/elastic_restart_torch.py`` and
+``examples/finetune_lora_ckpt_torch.py`` on the card, their own asserts
+holding.
+
 Last, the training half of the main path (phase ``train``): full-width
 yi-6b with its depth cut to ``TRAIN_LAYERS`` trains through
 ``make_train_step``, is saved in full with its optimizer state, trains on,
 is saved incrementally through the fingerprint kernel, restored, refreshed
 into an engine and served; the kernel is then held bit for bit against its
-plain version on that training tree and timed. ``reference_check`` also
-runs one f32 train step on the card against the CPU.
+plain version on that training tree and timed, and ``remat_outputs`` holds
+one ``value_and_grad`` under remat "outputs" against "none" (and
+"nothing"), with each one's peak memory. ``reference_check`` also runs
+one f32 train step on the card against the CPU.
 
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
@@ -312,6 +326,188 @@ def phase_fp_per_leaf(union, chunk_bytes) -> dict:
            "packed_ms": _host_ms(
                lambda: fingerprint_tree_packed(union, chunk_bytes), 3, dev)}
     log("fp_per_leaf", **res)
+    return res
+
+
+def phase_fp_tree(union, chunk_bytes) -> dict:
+    """``kernels.fingerprint.ops.fingerprint_tree`` (the counterpart of the
+    reference's entry point) on the main path's tree: one launch and one
+    D2H copy, its table bit-equal to the packed ``fingerprint_leaves``
+    table and to the plain version. Both timed by CUDA events: the entry
+    point with its D2H copy and host split, the packed launch alone."""
+    from repro_torch.core import tree_pack_index
+    from repro_torch.core.chunker import dtype_str, shape_of
+    from repro_torch.core.fingerprint import chunk_geometry
+    from repro_torch.kernels.fingerprint.ops import (fingerprint_leaves,
+                                                     fingerprint_tree)
+    from repro_torch.kernels.fingerprint.ref import fingerprint_rows_plain
+    dev = next(t.device for t in union.values() if t.is_cuda)
+    leaves = [t.to(dev).contiguous() for t in union.values()]
+    geom = [chunk_geometry(shape_of(t), dtype_str(t), chunk_bytes)
+            for t in leaves]
+    fingerprint_leaves.launches = 0
+    got = fingerprint_tree(union, chunk_bytes)
+    launches = fingerprint_leaves.launches
+    packed = fingerprint_leaves(leaves, geom).cpu().numpy()
+    plain = fingerprint_rows_plain(leaves, geom).cpu().numpy()
+    index, rows, _ = tree_pack_index(union, chunk_bytes)
+    check(launches == 1, f"fingerprint_tree made {launches} launches")
+    check(list(got) == list(union) and all(
+        np.array_equal(got[n], packed[off:off + k])
+        and np.array_equal(got[n], plain[off:off + k])
+        for n, off, k in index), "fingerprint_tree != packed / plain")
+    res = {"leaves": len(union), "rows": rows, "launches": launches,
+           "bit_exact": True,
+           "tree_ms": cuda_ms(lambda: fingerprint_tree(union, chunk_bytes), 5),
+           "packed_ms": cuda_ms(lambda: fingerprint_leaves(leaves, geom), 5)}
+    log("fp_tree", **res)
+    return res
+
+
+def phase_specs(cfg, params) -> dict:
+    """``param_specs`` (meta tensors) against the served tree: the same
+    paths, shapes and dtypes, so the same bytes."""
+    from repro_torch.models import param_specs
+    specs, served = _flat(param_specs(cfg)), _flat(params)
+    check(sorted(specs) == sorted(served) and all(
+        tuple(specs[k].shape) == tuple(served[k].shape)
+        and specs[k].dtype == served[k].dtype and specs[k].is_meta
+        for k in served), "param_specs differ from the served tree")
+    res = {"model": cfg.name, "layers": cfg.n_layers, "leaves": len(specs),
+           "spec_bytes": _nbytes(specs), "served_bytes": _nbytes(params)}
+    check(res["spec_bytes"] == res["served_bytes"], f"specs bytes {res}")
+    log("specs", **res)
+    return res
+
+
+def phase_steps(cfg, eng, prompts, new_tokens: int) -> dict:
+    """``make_prefill_step`` and ``make_decode_step`` on the engine's params:
+    the prefill cache spliced into a decode cache as the engine splices
+    it, then greedy decode steps; the tokens must equal
+    ``Engine.generate``'s. Records each step's gap between the top two
+    logits (``phase_sample`` reads it) and times both steps."""
+    from repro_torch.models import init_cache
+    from repro_torch.train import make_decode_step, make_prefill_step
+    dev = eng.device
+    B, S = prompts.shape
+    greedy = eng.generate(prompts, new_tokens).tokens
+    prefill = make_prefill_step(cfg, B, S, dev).fn
+    decode = make_decode_step(cfg, B, eng.max_len, dev).fn
+    toks = torch.as_tensor(prompts, device=dev)
+    t0 = time.perf_counter()
+    pf_cache, logits = prefill(eng.params, toks)
+    cache = eng._splice(init_cache(cfg, B, eng.max_len, dev), pf_cache, S)
+    out = np.zeros((B, new_tokens), np.int32)
+    gaps = np.zeros((B, new_tokens))
+    for i in range(new_tokens):
+        lg = logits[:, :cfg.vocab].float()
+        top = torch.topk(lg, 2).values
+        gaps[:, i] = (top[:, 0] - top[:, 1]).cpu().numpy()
+        tok = torch.argmax(lg, dim=-1)
+        out[:, i] = tok.cpu().numpy()
+        cache, logits = decode(eng.params, cache, tok, S + i)
+    steps_s = time.perf_counter() - t0
+    check(np.array_equal(out, greedy),
+          "the step bundles' greedy tokens differ from Engine.generate's")
+    res = {"model": cfg.name, "batch": B, "prompt_len": S,
+           "new_tokens": new_tokens, "tokens_equal": True,
+           "seconds": steps_s,
+           "prefill_ms": _host_ms(lambda: prefill(eng.params, toks), 3, dev),
+           "decode_step_ms": _host_ms(lambda: decode(
+               eng.params, cache, tok, S + new_tokens - 1), 5, dev),
+           "min_top2_gap": float(gaps.min())}
+    log("steps", **res)
+    res.update(greedy=greedy, gaps=gaps)
+    return res
+
+
+SAMPLE_T = 0.7
+NEAR_ZERO_T = 1e-4
+
+
+def phase_sample(cfg, eng, prompts, new_tokens: int, greedy, gaps) -> dict:
+    """Sampled decoding on the served engine: one seed gives the same
+    tokens twice and another seed other tokens (T 0.7); at T 1e-4 each
+    row gives the greedy tokens up to its first step whose top two logits
+    lie within 30 T (the difference of two Gumbel draws passes 30 with
+    probability below 1e-13; a bf16 logit tie is a coin toss, as it is for
+    the reference); tokens/s sampled against greedy, host-timed."""
+    B = prompts.shape[0]
+    a = eng.generate(prompts, new_tokens, SAMPLE_T, 1).tokens
+    b = eng.generate(prompts, new_tokens, SAMPLE_T, 1).tokens
+    c = eng.generate(prompts, new_tokens, SAMPLE_T, 2).tokens
+    check(np.array_equal(a, b), "one seed gave two token sequences")
+    check(not np.array_equal(a, c), "two seeds gave the same tokens")
+    check(bool(((a >= 0) & (a < cfg.vocab)).all()), "token out of range")
+    cold = eng.generate(prompts, new_tokens, NEAR_ZERO_T, 0).tokens
+    apart = gaps > 30 * NEAR_ZERO_T
+    upto = np.where(apart.all(1), new_tokens, np.argmin(apart, axis=1))
+    check(all(np.array_equal(cold[r, :upto[r]], greedy[r, :upto[r]])
+              for r in range(B)), "T 1e-4 left the greedy tokens")
+    check(int(upto.sum()) > 0, "no step's top two logits were apart")
+
+    def tokens_per_s(temperature):
+        t = time.perf_counter()
+        eng.generate(prompts, new_tokens, temperature, 3)
+        return B * new_tokens / (time.perf_counter() - t)
+
+    res = {"model": cfg.name, "temperature": SAMPLE_T,
+           "seeds_reproduce": True, "tokens_moved_by_seed": int((a != c).sum()),
+           "tokens_moved_from_greedy": int((a != greedy).sum()),
+           "near_zero_t_tokens_equal_greedy": int(upto.sum()),
+           "rows_with_a_near_tie": int((upto < new_tokens).sum()),
+           "greedy_tokens_per_s": tokens_per_s(0.0),
+           "sampled_tokens_per_s": tokens_per_s(SAMPLE_T)}
+    log("sample", **res)
+    return res
+
+
+def phase_watchdog() -> dict:
+    """``launch.train.main --watchdog-s 60`` on yi-6b's smoke config on the
+    card: the watchdog is armed around each of 4 steps and never fires."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--arch", "yi-6b", "--smoke", "--steps", "4", "--batch",
+                    "2", "--seq", "64", "--watchdog-s", "60", "--device",
+                    "cuda"])
+    text = buf.getvalue()
+    check("[watchdog]" not in text, "the watchdog fired on a healthy step")
+    check("[train] 4 steps in" in text, f"the launcher did not train:\n{text}")
+    res = {"seconds": time.perf_counter() - t0, "fired": False,
+           "last_line": text.strip().splitlines()[-1]}
+    log("watchdog", **res)
+    return res
+
+
+def phase_examples() -> dict:
+    """``examples/elastic_restart_torch.py`` and
+    ``examples/finetune_lora_ckpt_torch.py`` with ``--device cuda``, called
+    in process: their own asserts (a crashed and restored run bitwise equal
+    to an uninterrupted one; incremental saves under a tenth of full
+    ones' bytes) must hold on the card."""
+    import contextlib
+    import importlib.util
+    import io
+    res = {}
+    for name, ok in (("elastic_restart_torch", "elastic_restart OK"),
+                     ("finetune_lora_ckpt_torch", "finetune_lora_ckpt OK")):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--device", "cuda"])
+        text = buf.getvalue()
+        check(ok in text, f"{name} did not finish:\n{text}")
+        res[name] = {"seconds": time.perf_counter() - t0,
+                     "output": text.strip().splitlines()[-6:]}
+    log("examples", **res)
     return res
 
 
@@ -867,11 +1063,13 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
     with no negotiation. Between the saves, layer ``edit_layer`` of the
     leaf ``edit`` and ``final_norm`` change on the device, and the update
     must name exactly those two leaves. ``extras`` adds the store's
-    sub-paths on the same stores: "fp_per_leaf" before the main path;
-    after it, "repair" (a smart follower's verify gate catches a blob
-    rotted at rest in the replica and heals it from the trainer's store),
-    "tenants" (tenants and ``replicate``) and "scrub" (a passive
-    follower's replica). Returns the counts the caller checks against the
+    sub-paths on the same stores: "fp_per_leaf", "fp_tree" and "specs"
+    before the main path; after it, "repair" (a smart follower's verify
+    gate catches a blob rotted at rest in the replica and heals it from
+    the trainer's store), "tenants" (tenants and ``replicate``), "scrub"
+    (a passive follower's replica), then "steps" (the prefill and decode
+    step bundles on the served engine) and "sample" (sampled decoding;
+    needs "steps"). Returns the counts the caller checks against the
     kernels, the engine and the prompts."""
     from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
     from repro_torch.core import tree_pack_index
@@ -898,6 +1096,10 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
             out["kernel"] = phase_fingerprint_full(union, chunk_bytes)
             if "fp_per_leaf" in extras:
                 out["fp_per_leaf"] = phase_fp_per_leaf(union, chunk_bytes)
+            if "fp_tree" in extras:
+                out["fp_tree"] = phase_fp_tree(union, chunk_bytes)
+        if "specs" in extras:
+            out["specs"] = phase_specs(cfg, params)
 
         # ---- the main path: launches are counted from here to the refresh
         fingerprint_leaves.launches = 0
@@ -1039,6 +1241,12 @@ def serving_path(cfg, params, dev, chunk_bytes: int, batch: int,
         if "scrub" in extras:
             out["scrub"] = _scrub_and_heal(cfg, mgr, fol, dev, prompts,
                                            new_tokens, res_ref.tokens)
+        if "steps" in extras:
+            out["steps"] = phase_steps(cfg, eng, prompts, new_tokens)
+        if "sample" in extras:
+            st = out["steps"]
+            out["sample"] = phase_sample(cfg, eng, prompts, new_tokens,
+                                         st.pop("greedy"), st.pop("gaps"))
 
         with torch.inference_mode():
             toks = torch.as_tensor(prompts, device=dev).long()
@@ -1590,11 +1798,62 @@ def training_path(cfg, dev, batch: int, seq: int, steps: int,
     return out
 
 
+REMAT_LOSS_TOL = 0.05     # bf16 loss, tests/test_torch_train.py
+REMAT_GRAD_TOL = 1e-4     # x max(1, |g|), tests/test_torch_train.py
+
+
+def phase_remat_outputs(cfg, dev) -> dict:
+    """One ``value_and_grad`` of ``cfg`` on one microbatch of the train
+    phase's traffic (2 x 2048 tokens), same weights and batch, under
+    remat "none", "outputs" and "nothing" (after one warm-up call): the
+    loss and the grad norm of "outputs" within the train step's
+    tolerances of "none"'s, and each one's peak device memory above what
+    was allocated before it, "outputs" between "nothing" and "none"."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import init_params
+    from repro_torch.train.step import value_and_grad
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             SyntheticTokens(cfg.vocab, 2, 2048, seed=0).batch_at(0).items()}
+    value_and_grad(cfg.replace(remat="nothing"), params, batch)
+    res = {}
+    for remat in ("none", "outputs", "nothing"):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, _, grads = value_and_grad(cfg.replace(remat=remat), params,
+                                        batch)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                     for g in grads)))
+        res[remat] = {"loss": float(loss), "grad_norm": gnorm,
+                      "peak_bytes": peak, "seconds": secs}
+        del grads
+    none, outs = res["none"], res["outputs"]
+    err = {"loss": abs(outs["loss"] - none["loss"]),
+           "grad_norm": abs(outs["grad_norm"] - none["grad_norm"])
+           / max(1.0, none["grad_norm"])}
+    check(err["loss"] <= REMAT_LOSS_TOL and err["grad_norm"] <= REMAT_GRAD_TOL,
+          f"remat='outputs' against 'none': {err}")
+    check(res["nothing"]["peak_bytes"] <= outs["peak_bytes"]
+          <= none["peak_bytes"], f"peak memory out of order: {res}")
+    res.update(model=cfg.name, layers=cfg.n_layers, batch=2, seq=2048,
+               err=err, tol={"loss": REMAT_LOSS_TOL,
+                             "grad_norm": REMAT_GRAD_TOL})
+    log("remat_outputs", **res)
+    return res
+
+
 def phase_train(dev, layers: int, steps: int) -> dict:
     """Full-width yi-6b with its depth cut to ``layers``, trained through
     ``training_path`` at the quickstart's traffic (batch 4 x 2048 tokens);
     then the fingerprint kernel held bit for bit against its plain version
-    on the training tree (params and f32 optimizer state) and timed."""
+    on the training tree (params and f32 optimizer state) and timed; then
+    ``phase_remat_outputs`` on the same model."""
     from repro_torch.configs import get_config
     cfg = get_config("yi-6b").replace(n_layers=layers)
     batch, seq = 4, 2048
@@ -1613,6 +1872,8 @@ def phase_train(dev, layers: int, steps: int) -> dict:
         restore_seconds=out["restore_s"], params=out["n_params"])
     out["kernel"] = phase_fingerprint_full(out.pop("union"), 1 << 20,
                                            "fingerprint_train")
+    torch.cuda.empty_cache()
+    out["remat_outputs"] = phase_remat_outputs(cfg, dev)
     return out
 
 
@@ -1673,14 +1934,17 @@ def main() -> int:
     phase_ssd_edges(dev)
     phase_reference_check(dev)
     phase_moe_dispatch(dev)
+    phase_watchdog()
+    phase_examples()
 
     # slice 1: the dense family at full width, depth cut
     yi = run_model("yi-6b", dev, edit="blocks/wk", edit_layer=3, batch=4,
                    prompt_len=128, new_tokens=32, follower="smart",
-                   extras=("fp_per_leaf", "repair"), layers=YI_SERVE_LAYERS)
+                   extras=("fp_per_leaf", "fp_tree", "specs", "repair",
+                           "steps", "sample"), layers=YI_SERVE_LAYERS)
     fp_dense, fp_dense_launches = yi["kernel"], yi["launches"]
     store_paths = {"fp_per_leaf": yi["fp_per_leaf"]["launches"]}
-    per_leaf = yi["fp_per_leaf"]
+    per_leaf, fp_tree = yi["fp_per_leaf"], yi["fp_tree"]
     del yi
     torch.cuda.empty_cache()
 
@@ -1731,6 +1995,9 @@ def main() -> int:
                   launches_mla_path=fp_mla_launches,
                   launches_train_path=tr["launches"],
                   launches_store_paths=store_paths,
+                  launches_fingerprint_tree=fp_tree["launches"],
+                  fingerprint_tree={k: fp_tree[k] for k in (
+                      "leaves", "rows", "tree_ms", "packed_ms")},
                   per_leaf={k: per_leaf[k] for k in (
                       "leaves", "per_leaf_ms", "packed_ms")},
                   dense_tree={k: fp_dense[k] for k in (

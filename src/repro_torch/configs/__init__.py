@@ -8,6 +8,7 @@ from ..models.config import ModelConfig
 from . import (command_r_35b, gemma_2b, granite_moe_3b, hymba_1_5b,
                mamba2_130m, minicpm3_4b, mixtral_8x7b, musicgen_medium,
                pixtral_12b, yi_6b)
+from .shapes import SHAPES, ShapeSpec, applicable_shapes, input_specs
 
 _MODULES = {
     m.ARCH_ID: m
@@ -17,6 +18,9 @@ _MODULES = {
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "list_archs",
+           "SHAPES", "ShapeSpec", "applicable_shapes", "input_specs"]
 
 
 def list_archs() -> List[str]:

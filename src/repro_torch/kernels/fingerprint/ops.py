@@ -5,12 +5,17 @@ plain version (``ref.fingerprint_rows_plain``); for leaves on a CUDA device
 it launches ``csrc/fingerprint.cu`` once for the whole tree, or raises. It
 never falls back from the kernel to the plain version.
 ``fingerprint_leaves.launches`` counts kernel launches, and nothing else.
+
+``fingerprint`` (one tensor) and ``fingerprint_tree`` (a whole flat
+payload dict, one launch and one D2H copy) are the counterparts of the
+reference's entry points of the same names, on ``core.fingerprint``'s
+chunk geometry.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,3 +98,22 @@ def fingerprint_leaves(leaves: Sequence[torch.Tensor],
 
 
 fingerprint_leaves.launches = 0
+
+
+# ``core.fingerprint`` imports this module, so the entry points below
+# import it when called
+def fingerprint(t: torch.Tensor, chunk_bytes: int = 1 << 20) -> torch.Tensor:
+    """-> the (n_chunks, 2) int32 fingerprints of one tensor, on its
+    device (one kernel launch on the card)."""
+    from ...core.fingerprint import fingerprint_chunks
+    return fingerprint_chunks(t, chunk_bytes)
+
+
+def fingerprint_tree(tree: Dict[str, torch.Tensor],
+                     chunk_bytes: int = 1 << 20, *,
+                     stats: Optional[dict] = None) -> Dict[str, np.ndarray]:
+    """name -> (n_chunks, 2) int32 fingerprints of a flat payload dict: ONE
+    kernel launch and one (total_chunks, 2) D2H copy for the whole tree
+    (``core.fingerprint.fingerprint_tree_packed``)."""
+    from ...core.fingerprint import fingerprint_tree_packed
+    return fingerprint_tree_packed(tree, chunk_bytes, stats=stats)

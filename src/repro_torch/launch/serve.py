@@ -1,6 +1,6 @@
 """Serving launcher (torch port of ``repro/launch/serve.py``): restore a
 checkpoint from a layered store, or draw seeded random weights, and serve
-a batch of greedy requests on the card.
+a batch of requests on the card, greedy or sampled at ``--temperature``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
         --store /tmp/ckpt --batch 4 --prompt-len 16 --steps 16
@@ -47,12 +47,14 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int,
 
 
 def serve(cfg: ModelConfig, params: Dict, prompts: np.ndarray, steps: int,
-          device) -> Tuple[Engine, GenerationResult, float]:
+          device, temperature: float = 0.0
+          ) -> Tuple[Engine, GenerationResult, float]:
     """Build the engine and generate; -> (engine, result, seconds)."""
     eng = Engine(cfg, params, max_len=prompts.shape[1] + steps + 8,
                  device=device)
     t0 = time.perf_counter()
-    res = eng.generate(prompts, steps=steps)   # ends in a host copy
+    res = eng.generate(prompts, steps=steps,      # ends in a host copy
+                       temperature=temperature)
     return eng, res, time.perf_counter() - t0
 
 
@@ -65,6 +67,7 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -74,7 +77,8 @@ def main(argv=None) -> None:
     if step is not None:
         print(f"[serve] loaded step-{step} from layered store")
     prompts = make_prompts(cfg, args.batch, args.prompt_len)
-    _, res, dt = serve(cfg, params, prompts, args.steps, args.device)
+    _, res, dt = serve(cfg, params, prompts, args.steps, args.device,
+                       args.temperature)
     toks = res.tokens.size
     print(f"[serve] generated {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s) on {args.device}")

@@ -8,8 +8,9 @@ checkpointing and restore-and-resume.
 ``--device`` defaults to ``cuda``; without a card that is an error, and
 ``--device cpu`` runs on the CPU. A run with ``--ckpt`` resumes from the
 newest checkpoint there, and the batches of the steps it runs are those
-of an uninterrupted run. Meshes other than 1x1 wait for the port's
-sharding, and the step watchdog for its ``ft/`` package: both raise.
+of an uninterrupted run. ``--watchdog-s`` arms ``ft.Watchdog`` around
+each step, which prints ``[watchdog] step hung`` when a step outlasts it.
+Meshes other than 1x1 wait for the port of ``sharding/`` and raise.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from ..ckpt import CheckpointManager, CheckpointPolicy
 from ..configs import get_config, get_smoke_config
 from ..data import SyntheticTokens
 from ..device import resolve_device
+from ..ft import Watchdog
 from ..models import init_params
 from ..optim import AdamWConfig, init_opt_state
 from ..train import TrainConfig, make_train_step
@@ -48,12 +50,8 @@ def main(argv=None) -> None:
 
     if args.mesh != "1x1":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training comes with the port's "
-            "sharding (ROADMAP Queue 1 item 7); only 1x1 runs")
-    if args.watchdog_s > 0:
-        raise NotImplementedError(
-            "--watchdog-s: the step watchdog comes with the port's ft/ "
-            "package (ROADMAP Queue 1 item 5)")
+            f"--mesh {args.mesh}: sharded training waits for the port of "
+            "sharding/; only 1x1 runs")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(adamw=AdamWConfig(peak_lr=args.lr,
@@ -77,9 +75,15 @@ def main(argv=None) -> None:
 
     ds = SyntheticTokens(cfg.vocab, batch=args.batch, seq=args.seq)
     bundle = make_train_step(cfg, tcfg, args.batch, args.seq, device)
+    wd = Watchdog(args.watchdog_s, lambda: print("[watchdog] step hung")) \
+        if args.watchdog_s > 0 else None
     t0 = time.perf_counter()
     for s in range(start_step, args.steps):
+        if wd:
+            wd.arm()
         params, opt, metrics = bundle.fn(params, opt, ds.batch_at(s))
+        if wd:
+            wd.disarm()
         if (s + 1) % max(1, args.steps // 20) == 0 or s == start_step:
             print(f"[train] step {s + 1}: loss={float(metrics['loss']):.4f} "
                   f"lr={float(metrics['lr']):.2e} "

@@ -7,6 +7,8 @@ port does too: no fused attention operator stands in for them).
   blocks, each attending to a fixed-size (window + q_block) KV slice.
 * ``attention_decode`` — single-query attention over a cache (optionally a
   ring buffer for SWA).
+* ``attention_reference`` — the naive O(S²)-memory oracle the tests hold
+  the others against.
 
 All operate on (B, S, H, D) layouts with GQA grouping handled by reshaping
 q to (B, KVH, G, S, D). Score and value products take their inputs'
@@ -194,3 +196,22 @@ def attention(q, k, v, *, causal=True, window=None, impl="auto",
     return attention_blockwise(q, k, v, causal=causal, window=window,
                                kv_block=kv_block, scale=scale,
                                score_dtype=score_dtype)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Naive O(S²)-memory oracle (tests only, small shapes). q: (B, S, Hq,
+    Dk); k: (B, S, KVH, Dk); v: (B, S, KVH, Dv)."""
+    S, KVH = q.shape[1], k.shape[2]
+    qh = _split_heads(_scale(q, scale), KVH)               # (B,KVH,G,S,Dk)
+    s = _scores(qh, k.permute(0, 2, 1, 3))                 # (B,KVH,G,S,S)
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    o = _values(p.to(v.dtype), v.permute(0, 2, 1, 3))
+    return _merge_heads(o).to(q.dtype)

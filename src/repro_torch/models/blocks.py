@@ -5,8 +5,10 @@ Every family exposes, through the ``FAMILY_*`` tables:
     init(cfg, generator, device, n_layers)    -> params, layer-stacked
     apply(cfg, p, x, positions, collect_cache) -> (x', aux, cache_entry|None)
     decode(cfg, p, cache, x_t, pos)            -> (cache', x_t')
-and ``init_layer_cache(cfg, batch, cache_len, device)``. ``aux`` is a 0-d
-f32 tensor: the moe block's router load-balancing loss, zero elsewhere.
+and ``init_layer_cache(cfg, batch, cache_len, device)``; ``init_block``,
+``apply_block`` and ``decode_block`` dispatch on ``cfg.family``, as the
+reference's do. ``aux`` is a 0-d f32 tensor: the moe block's router
+load-balancing loss, zero elsewhere.
 
 Weights are head-structured (d, H, Dh) / (H, Dh, d). Caches hold ungrouped
 K/V (KVH heads); SWA archs use a ring buffer of ``window`` slots; the mla
@@ -26,8 +28,8 @@ import torch
 
 from .attention import attention, attention_decode
 from .config import ModelConfig
-from .layers import (apply_rope, as_torch_dtype, dense, proj_heads, rms_norm,
-                     trunc_normal, unproj_heads)
+from .layers import (apply_rope, as_torch_dtype, dense, proj_heads,
+                     recomputed, rms_norm, trunc_normal, unproj_heads)
 from .moe import moe_ffn
 from .ssm import (causal_conv, causal_conv_step, ssd_chunked,
                   ssd_decode_step)
@@ -175,13 +177,22 @@ def init_dense_block(cfg: ModelConfig, generator: torch.Generator, device,
     }
 
 
+def _block_out(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, a sublayer of the dense block. Under
+    ``remat="outputs"`` its output is kept and its inside recomputed in
+    backward: the tensors the JAX dense block names ``block_out``."""
+    if cfg.remat == "outputs":
+        return recomputed(fn, *args)
+    return fn(*args)
+
+
 def apply_dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                       positions: torch.Tensor, collect_cache: bool = False):
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
-    a, k, v = _self_attention(cfg, p, h, positions)
+    a, k, v = _block_out(cfg, _self_attention, cfg, p, h, positions)
     x = x + a
     h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
-    x = x + _mlp(cfg, p, h)
+    x = x + _block_out(cfg, _mlp, cfg, p, h)
     cache = None
     if collect_cache:
         C = cfg.cache_len(x.shape[1])
@@ -486,8 +497,10 @@ def apply_ssm_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     return x + y, _no_aux(x), cache
 
 
-def ssm_cache_init(cfg: ModelConfig, batch: int, device,
-                   cache_len: int = 0) -> Dict:
+def ssm_cache_init(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
+                   device=None) -> Dict:
+    """The SSM states; ``cache_len`` is the reference's and unused (the
+    state does not grow with the sequence)."""
     di, N, G, Hs, P = _ssm_dims(cfg)
     K = cfg.conv_kernel
     cdt = as_torch_dtype(cfg.compute_dtype)
@@ -569,7 +582,7 @@ def apply_hybrid_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 def hybrid_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
                       device) -> Dict:
     return {**_kv_cache_init(cfg, batch, cache_len, device),
-            **ssm_cache_init(cfg, batch, device)}
+            **ssm_cache_init(cfg, batch, device=device)}
 
 
 def decode_hybrid_block(cfg: ModelConfig, p: Dict, cache: Dict,
@@ -599,13 +612,34 @@ FAMILY_DECODE = {"dense": decode_dense_block, "moe": decode_moe_block,
                  "hybrid": decode_hybrid_block}
 
 
+def _first_layer(tree: Dict) -> Dict:
+    return {k: _first_layer(v) if isinstance(v, dict) else v[0]
+            for k, v in tree.items()}
+
+
+def init_block(cfg: ModelConfig, generator: torch.Generator,
+               device) -> Dict:
+    """One layer's params, without the leading ``n_layers`` dim."""
+    return _first_layer(FAMILY_INIT[cfg.family](cfg, generator, device, 1))
+
+
+def apply_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                positions: torch.Tensor, collect_cache: bool = False):
+    return FAMILY_APPLY[cfg.family](cfg, p, x, positions, collect_cache)
+
+
+def decode_block(cfg: ModelConfig, p: Dict, cache: Dict, x_t: torch.Tensor,
+                 pos: int):
+    return FAMILY_DECODE[cfg.family](cfg, p, cache, x_t, pos)
+
+
 def init_layer_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     if cfg.family in ("dense", "moe"):
         return _kv_cache_init(cfg, batch, cache_len, device)
     if cfg.family == "mla":
         return mla_cache_init(cfg, batch, cache_len, device)
     if cfg.family == "ssm":
-        return ssm_cache_init(cfg, batch, device)
+        return ssm_cache_init(cfg, batch, device=device)
     if cfg.family == "hybrid":
         return hybrid_cache_init(cfg, batch, cache_len, device)
     raise ValueError(cfg.family)

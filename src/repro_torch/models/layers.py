@@ -116,3 +116,8 @@ def trunc_normal(shape, std: float, dtype: torch.dtype,
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t.mul_(std)).to(dtype)
 
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, device) -> torch.Tensor:
+    """A (d_in, d_out) weight: ``trunc_normal`` with std ``d_in ** -0.5``."""
+    return trunc_normal((d_in, d_out), d_in ** -0.5, dtype, generator, device)

@@ -6,7 +6,8 @@ Parameters are layer-stacked, as in the JAX package: every block leaf has a
 leading ``n_layers`` dim, and the layers run as a loop over that dim. Param
 paths, shapes and dtypes equal the JAX package's, so a checkpoint saved by
 either package restores into the other. The rematerialization policy
-(``cfg.remat``) wraps each layer in ``torch.utils.checkpoint``.
+(``cfg.remat``) wraps each layer, or under "outputs" the dense block's two
+sublayers, in ``torch.utils.checkpoint``.
 
 The LM head / CE loss is computed *chunked over the sequence*, each chunk's
 logits recomputed in backward, so the full (B, S, V) logits tensor is never
@@ -61,6 +62,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def param_specs(cfg: ModelConfig) -> Dict:
+    """The params' tree, shapes and dtypes as meta-device tensors: nothing
+    is allocated, at any width."""
+    return init_params(cfg, torch.Generator(), "meta")
+
+
 def lm_head_weight(cfg: ModelConfig, params: Dict) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"].T
@@ -97,17 +104,17 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _remat(cfg: ModelConfig, fn):
     """``fn`` under the config's rematerialization policy: "none" saves
-    everything, "dots" the matrix products' results, any other value only
-    the block boundaries ("nothing"). "outputs" saves the tensors the JAX
-    blocks name ``block_out``; torch's policies see operators, not names,
-    so it is refused."""
-    if cfg.remat == "none":
+    everything, "dots" the matrix products' results, "nothing" (and any
+    other value) only the block boundaries. "outputs" saves the tensors
+    the JAX blocks name ``block_out``: only the dense block names them (its
+    attention and MLP outputs), so there the layer runs as it is and the
+    block checkpoints those two sublayers each on its own
+    (``blocks._block_out``); in every other family nothing inside the
+    block is named, so "outputs" saves what "nothing" saves, as JAX's
+    ``save_only_these_names("block_out")`` does there."""
+    if cfg.remat == "none" or (cfg.remat == "outputs"
+                               and cfg.family == "dense"):
         return fn
-    if cfg.remat == "outputs":
-        raise NotImplementedError(
-            "remat='outputs' (save only the tensors named 'block_out') has "
-            "no torch checkpoint policy: torch's policies select operators, "
-            "not named values; use 'nothing', 'dots' or 'none'")
     context_fn = tckpt.noop_context_fn
     if cfg.remat == "dots":
         context_fn = functools.partial(

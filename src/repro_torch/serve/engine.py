@@ -1,7 +1,8 @@
 """Batched serving engine: prefill once, decode step by step (torch port of
 ``Engine`` and ``changed_tensor_paths`` from ``repro/serve/engine.py``).
 
-Decoding is greedy, as the parity with the JAX engine covers. ``refresh``
+Decoding is greedy, or sampled at a temperature by the Gumbel-max trick
+(``sample_logits``). ``refresh``
 hot-swaps weights: in full, or sparsely, where only the leaves a new
 checkpoint changed are copied to the device into a copy-on-write clone of
 the live tree (O(changed tensors) of H2D, bit-identical to a full reload).
@@ -153,6 +154,22 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def sample_logits(logits: torch.Tensor, temperature: float,
+                  gen: torch.Generator) -> torch.Tensor:
+    """One token per row of ``logits`` (..., V): the argmax when
+    ``temperature <= 0``, else a draw from ``softmax(logits /
+    temperature)`` by the Gumbel-max trick, the method of
+    ``jax.random.categorical``: ``argmax(logits / T + g)`` with ``g =
+    -log(-log(u))`` and ``u`` uniform from ``gen``. JAX's bits cannot be
+    reproduced in torch, so sampled tokens are held to the reference by
+    their law, not token for token."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    g = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+    return torch.argmax(logits.float() / temperature + g, dim=-1)
+
+
 class Engine:
     """Serves one model on ``device`` (the card unless ``device="cpu"``)."""
 
@@ -254,19 +271,16 @@ class Engine:
     def generate(self, prompts: np.ndarray, steps: int,
                  temperature: float = 0.0, seed: int = 0,
                  stop_token: Optional[int] = None) -> GenerationResult:
-        """Greedy decode. prompts: (B, S) int32, all of one length. The
-        arguments are the reference's, in its order; ``temperature > 0``
-        raises ``NotImplementedError``, since the reference's sampled
-        tokens (``jax.random.categorical`` from ``seed``) cannot be
-        reproduced in torch."""
-        if temperature > 0.0:
-            raise NotImplementedError(
-                f"temperature {temperature}: only greedy decoding "
-                "(temperature 0) is ported")
-        del seed                        # only sampling would read it
+        """prompts: (B, S) int32, all of one length. The arguments are the
+        reference's, in its order. ``temperature <= 0`` decodes greedily;
+        above it each token is drawn by ``sample_logits`` from one
+        generator on the engine's device, seeded with ``seed``, that draws
+        once for the first token and once a step after that (the
+        reference's ``key, sub = split(key)`` sequence)."""
         B, S = prompts.shape
         if S + steps > self.max_len and not self.cfg.window:
             raise ValueError("prompt + steps exceeds the cache")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         cache = init_cache(self.cfg, B, self.max_len, self.device)
         # prefill builds a cache sized cache_len(S); splice it into the
         # full-size decode cache ring-consistently
@@ -275,20 +289,21 @@ class Engine:
             torch.as_tensor(prompts, dtype=torch.long, device=self.device))
         cache = self._splice(cache, pf_cache, S)
         out = np.zeros((B, steps), np.int32)
-        tok = self._sample(logits)
+        tok = self._sample(logits, temperature, gen)
         for i in range(steps):
             out[:, i] = tok.cpu().numpy()
             cache, logits = decode_step(self.cfg, self.params, cache, tok,
                                         S + i)
-            tok = self._sample(logits)
+            tok = self._sample(logits, temperature, gen)
             if stop_token is not None and bool((out[:, i] == stop_token).all()):
                 out = out[:, :i + 1]
                 break
         return GenerationResult(tokens=out,
                                 logits_last=logits.float().cpu().numpy())
 
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(logits[..., :self.cfg.vocab], dim=-1)
+    def _sample(self, logits: torch.Tensor, temperature: float,
+                gen: torch.Generator) -> torch.Tensor:
+        return sample_logits(logits[..., :self.cfg.vocab], temperature, gen)
 
     def _splice(self, cache: Dict, pf_cache: Dict, S: int) -> Dict:
         """Insert the prefill cache (length C_pf, ring layout) into the

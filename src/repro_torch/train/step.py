@@ -1,5 +1,6 @@
-"""The train step (torch port of ``make_train_step`` in
-``repro/train/step.py``, on one device).
+"""Step factories (torch port of ``make_train_step``,
+``make_prefill_step`` and ``make_decode_step`` in ``repro/train/step.py``,
+on one device).
 
 * microbatch gradient accumulation in f32, by the reference's auto rule
   (about 2 samples a microbatch) with a data-parallel size of 1;
@@ -10,7 +11,11 @@
 The reference's ZeRO-1 and recipe options only place shards, so on one
 device they change nothing, as on a 1x1 mesh. Its int8 gradient
 compression with error feedback compresses a cross-replica reduction,
-which waits for the port's sharding; asking for it raises.
+which waits for the port of ``sharding/``; asking for it raises. The
+reference's bundles also carry ``in_shardings``, ``out_shardings``,
+``recipe`` and ``abstract_inputs``; those wait for the same port. The
+prefill and decode steps run without autograd; the decode step updates
+the cache in place, as the reference's donated cache is.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.layers import as_torch_dtype
-from ..models.model import loss_fn
+from ..models.model import decode_step, init_cache, loss_fn, prefill
 from ..optim import AdamWConfig, apply_update
 from ..optim.adamw import tree_leaves, tree_map
 
@@ -41,10 +46,10 @@ class TrainConfig:
 
 @dataclass
 class StepBundle:
-    """``fn(params, opt_state, batch) -> (params, opt_state, metrics)``,
-    with the microbatch count it runs."""
+    """A step ``fn`` and the microbatch count it runs (1 for prefill and
+    decode)."""
     fn: Any
-    microbatches: int
+    microbatches: int = 1
 
 
 def auto_microbatches(global_batch: int, dp_size: int = 1) -> int:
@@ -85,8 +90,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, global_batch: int,
     if tcfg.grad_compression is not None:
         raise NotImplementedError(
             f"grad_compression={tcfg.grad_compression!r} compresses the "
-            "cross-replica gradient reduction, which comes with the port's "
-            "sharding (ROADMAP Queue 1 item 7)")
+            "cross-replica gradient reduction, which waits for the port of "
+            "sharding/")
     device = resolve_device(device)
     nmicro = tcfg.microbatches or auto_microbatches(global_batch)
     if global_batch % nmicro:
@@ -121,3 +126,53 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, global_batch: int,
         return params, opt_state, {"loss": loss, **metrics, **stats}
 
     return StepBundle(fn=step, microbatches=nmicro)
+
+
+def _tokens(tokens, shape: Tuple[int, ...], device) -> torch.Tensor:
+    t = torch.as_tensor(tokens, device=device)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"tokens of shape {tuple(t.shape)}; the step was "
+                         f"built for {shape}")
+    return t.long()
+
+
+def make_prefill_step(cfg: ModelConfig, global_batch: int, seq_len: int,
+                      device=None) -> StepBundle:
+    """``fn(params, tokens[, prefix_embeds]) -> (cache, logits)`` for
+    prompts of ``global_batch`` x ``seq_len`` tokens on ``device`` (the
+    card unless ``device="cpu"``): the decode cache stacked over layers,
+    sized ``cfg.cache_len(seq_len)``, and the last position's logits over
+    the unpadded vocab."""
+    device = resolve_device(device)
+
+    def step(params, tokens, prefix_embeds=None):
+        tokens = _tokens(tokens, (global_batch, seq_len), device)
+        if prefix_embeds is not None:
+            prefix_embeds = torch.as_tensor(prefix_embeds, device=device)
+        with torch.no_grad():
+            return prefill(cfg, params, tokens, prefix_embeds)
+
+    return StepBundle(fn=step)
+
+
+def make_decode_step(cfg: ModelConfig, global_batch: int, cache_len: int,
+                     device=None) -> StepBundle:
+    """``fn(params, cache, tokens, pos) -> (cache, logits)``: one token
+    for each of ``global_batch`` sequences at position ``pos``, against
+    a cache of ``init_cache(cfg, global_batch, cache_len)``'s shapes,
+    which is updated in place and returned; logits over the padded
+    vocab, as the reference's."""
+    device = resolve_device(device)
+    want = {k: tuple(v.shape) for k, v in
+            init_cache(cfg, global_batch, cache_len, "meta").items()}
+
+    def step(params, cache, tokens, pos):
+        got = {k: tuple(v.shape) for k, v in cache.items()}
+        if got != want:
+            raise ValueError(f"cache of shapes {got}; the step was built "
+                             f"for {want}")
+        tokens = _tokens(tokens, (global_batch,), device)
+        with torch.no_grad():
+            return decode_step(cfg, params, cache, tokens, int(pos))
+
+    return StepBundle(fn=step)

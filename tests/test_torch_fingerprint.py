@@ -23,6 +23,8 @@ from repro.core.fingerprint import (fingerprint_chunk_bytes_ref as  # noqa: E402
                                     jax_chunk_ref, fingerprint_chunks_ref,
                                     fingerprint_tree_packed as jax_packed)
 from repro.kernels.fingerprint.ops import fingerprint as pallas_fp  # noqa: E402
+from repro.kernels.fingerprint.ops import (  # noqa: E402
+    fingerprint_tree as pallas_tree)
 from repro_torch.convert import tensor_from_numpy  # noqa: E402
 from repro_torch.core.fingerprint import (  # noqa: E402
     chunk_geometry, fingerprint_chunk_bytes_ref, fingerprint_tree_packed)
@@ -204,6 +206,55 @@ def test_cuda_leaf_launches_the_kernel_or_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.fingerprint_leaves([_CudaLeaf()], [(1, 1)])
     assert ops.fingerprint_leaves.launches == before
+
+
+# the entry points under the reference's names: one tensor, a whole tree
+def _entry_tree():
+    rng = np.random.default_rng(9)
+    bits = rng.integers(0, 2 ** 64, 1500, dtype=np.uint64)
+    bits[::2] |= np.uint64(1 << 63)
+    return {
+        "f32": rng.standard_normal(3001).astype(np.float32),
+        "bf16": rng.standard_normal((40, 33)).astype(ml_dtypes.bfloat16),
+        "i64": bits.view(np.int64),
+    }
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("chunk_bytes", [1024, 96])
+def test_fingerprint_entry_point_bit_exact_with_pallas(name, chunk_bytes):
+    """``kernels.fingerprint.ops.fingerprint`` against the reference's,
+    the Pallas kernel in interpret mode. (A 64-bit jax array needs x64,
+    which the reference leaves off; the tree below carries the 64-bit
+    leaf.)"""
+    a = _entry_tree()[name]
+    want = np.asarray(pallas_fp(jnp.asarray(a), chunk_bytes, interpret=True))
+    before = ops.fingerprint_leaves.launches
+    got = ops.fingerprint(tensor_from_numpy(a), chunk_bytes)
+    assert ops.fingerprint_leaves.launches == before     # plain on the CPU
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("chunk_bytes", [1024, 512])
+def test_fingerprint_tree_entry_point_bit_exact_with_pallas(chunk_bytes):
+    """``kernels.fingerprint.ops.fingerprint_tree`` (one dispatch, one D2H
+    of the packed table) against the reference's in interpret mode: f32,
+    bf16 and a 64-bit leaf with its high bits set, keyed by path."""
+    tree = _entry_tree()
+    jstats, tstats = {}, {}
+    want = pallas_tree(tree, chunk_bytes, interpret=True, stats=jstats)
+    got = ops.fingerprint_tree({k: tensor_from_numpy(v)
+                                for k, v in tree.items()}, chunk_bytes,
+                               stats=tstats)
+    assert list(got) == list(want) == list(tree)
+    for name in tree:
+        assert got[name].dtype == np.int32
+        assert np.array_equal(got[name].view(np.uint32),
+                              np.asarray(want[name]).view(np.uint32)), name
+    assert tstats == jstats == {
+        "bytes_d2h": 8 * sum(v.shape[0] for v in got.values()),
+        "device_dispatches": 1}
 
 
 def test_other_devices_are_refused():

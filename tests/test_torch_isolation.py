@@ -1,9 +1,11 @@
 """The port stands alone: no file of ``src/repro_torch``, nor ``chip_smoke.py``
 nor the port's examples, imports the JAX package, JAX or ml_dtypes; the
 serving slice, the moe and mla families, the follower, the training
-quickstart, the scrub and chaos CLIs and the multi-tenant example (on
-mixtral-8x7b) run in a process where those cannot be imported; and the port's entry points refuse to drop to the CPU when no
-card is present and none was asked for."""
+quickstart, the scrub and chaos CLIs, the multi-tenant, elastic-restart
+and prompt-tuning examples run in a process where those cannot be
+imported, and the port's analyzer where torch cannot be imported either;
+and the port's entry points refuse to drop to the CPU when no card is
+present and none was asked for."""
 import ast
 import os
 import subprocess
@@ -23,10 +25,13 @@ BANNED = ("repro", "jax", "jaxlib", "ml_dtypes")
 
 QUICKSTART = os.path.join(ROOT, "examples", "quickstart_torch.py")
 MULTITENANT = os.path.join(ROOT, "examples", "serve_multitenant_torch.py")
+ELASTIC = os.path.join(ROOT, "examples", "elastic_restart_torch.py")
+FINETUNE = os.path.join(ROOT, "examples", "finetune_lora_ckpt_torch.py")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART, MULTITENANT]
+    out = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART, MULTITENANT,
+           ELASTIC, FINETUNE]
     for d, _, files in os.walk(PORT):
         out.extend(os.path.join(d, f) for f in sorted(files)
                    if f.endswith(".py"))
@@ -220,6 +225,56 @@ def test_store_surface_runs_with_jax_and_repro_unimportable():
     assert "detector catches 100% of seeded bit-rot" in proc.stdout
     assert "1/1 cells converged" in proc.stdout
     assert "multitenant OK" in proc.stdout
+
+
+_BLOCKED_EXAMPLES = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None
+for example in sys.argv[1:]:
+    sys.argv = [example, "--device", "cpu"]
+    runpy.run_path(example, run_name="__main__")
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+"""
+
+
+def test_new_examples_run_with_jax_and_repro_unimportable():
+    """``examples/elastic_restart_torch.py`` and
+    ``examples/finetune_lora_ckpt_torch.py``, ``--device cpu``."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_EXAMPLES, ELASTIC,
+                           FINETUNE], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "bitwise identical to run A: True" in proc.stdout
+    assert "elastic_restart OK" in proc.stdout
+    assert "finetune_lora_ckpt OK" in proc.stdout
+
+
+_BLOCKED_ANALYZER = r"""
+import runpy, sys
+for name in ("torch", "numpy", "jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None
+sys.argv = ["repro_torch.analysis", "--check"]
+try:
+    runpy.run_module("repro_torch.analysis", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert sys.modules["torch"] is None
+"""
+
+
+def test_analyzer_checks_with_torch_and_jax_unimportable():
+    """``python -m repro_torch.analysis --check`` is pure ``ast`` and
+    stdlib: it runs where neither torch nor jax (nor numpy) imports."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_ANALYZER], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "check: clean" in proc.stdout
 
 
 @pytest.fixture

@@ -221,12 +221,44 @@ def test_remat_policies_give_the_grads_of_none(remat):
     assert all(torch.equal(a, b) for a, b in zip(got[2], base[2]))
 
 
-def test_remat_outputs_is_refused_by_name():
+@pytest.mark.parametrize("arch", ["yi-6b", "hymba-1.5b"])
+def test_remat_outputs_gives_the_grads_of_none_and_of_jax(arch):
+    """remat="outputs": the dense block checkpoints its attention and MLP
+    sublayers each on its own (the tensors JAX names ``block_out``); the
+    hybrid block names nothing, so there it saves what "nothing" saves.
+    The loss and every grad leaf equal the port's "none" and are within
+    the train step's tolerances of JAX's value_and_grad under "outputs"."""
+    cfg, tcfg = _cfgs(arch, remat="outputs")
+    batch = _batch(cfg)
+    (jl, jaux, jg), (tl, taux, tg), tp = _loss_and_grads(cfg, tcfg, batch)
+    tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    base = value_and_grad(tcfg.replace(remat="none"), tp, tbatch)
+    assert torch.equal(tl, base[0])
+    assert all(torch.equal(a, b) for a, b in zip(tg, base[2]))
+    assert abs(float(tl) - float(jl)) <= LOSS_F32_TOL
+    names = sorted(_flat(tp))
+    assert names == sorted(jg) and len(tg) == len(names)
+    for name, g in zip(names, tg):
+        assert _abs_tol_err(g, jg[name]) <= GRAD_TOL, name
+
+
+def test_remat_outputs_recomputes_the_dense_sublayers(monkeypatch):
+    """Under "outputs" the dense block's attention and MLP run twice a
+    layer (forward, then recomputed in backward); under "none" once."""
+    from repro_torch.models import blocks
     cfg, tcfg = _cfgs()
     tp = tm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
     batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
-    with pytest.raises(NotImplementedError, match="outputs"):
-        value_and_grad(tcfg.replace(remat="outputs"), tp, batch)
+    calls = []
+    for name in ("_self_attention", "_mlp"):
+        fn = getattr(blocks, name)
+        monkeypatch.setattr(blocks, name, lambda *a, _fn=fn, _n=name: (
+            calls.append(_n), _fn(*a))[1])
+    for remat, per_layer in (("none", 1), ("outputs", 2)):
+        calls.clear()
+        value_and_grad(tcfg.replace(remat=remat), tp, batch)
+        assert sorted(calls) == sorted(
+            ["_self_attention", "_mlp"] * per_layer * cfg.n_layers), remat
 
 
 def test_backbone_grads_stack_each_leaf_once():
@@ -349,7 +381,7 @@ def test_train_step_matches_the_references_on_a_1x1_mesh():
 
 def test_train_step_options_that_wait_for_sharding_raise():
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="the port of sharding"):
         make_train_step(tcfg, TrainConfig(grad_compression="int8_ef"), 4, 16,
                         device="cpu")
 

@@ -1,11 +1,14 @@
 """The port's training entry points on the CPU: ``examples/quickstart_torch.py``
 run short, and ``python -m repro_torch.launch.train``, whose resumed run
-must end bit-identical to an uninterrupted one. Without a card and without
-``--device`` the launcher raises, and the options that wait for other parts
-of the port raise ``NotImplementedError``."""
+must end bit-identical to an uninterrupted one; ``--watchdog-s`` arms the
+step watchdog around each step, which stays quiet on a healthy step and
+prints the reference's ``[watchdog] step hung`` on a slow one. Without a
+card and without ``--device`` the launcher raises, and the option that
+waits for the port of ``sharding/`` raises ``NotImplementedError``."""
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -65,8 +68,58 @@ def test_launcher_without_a_card_refuses_the_cpu(monkeypatch):
         train.main(["--arch", "yi-6b", "--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--watchdog-s", "1"]],
-                         ids=["mesh", "watchdog"])
+@pytest.mark.parametrize("flag", [["--mesh", "2x1"]], ids=["mesh"])
 def test_options_waiting_for_other_parts_raise(flag):
     with pytest.raises(NotImplementedError):
         train.main(SMOKE + ["--steps", "1"] + flag)
+
+
+class _CountingWatchdog(train.Watchdog):
+    armed = []
+
+    def arm(self):
+        _CountingWatchdog.armed.append(self.timeout)
+        super().arm()
+
+
+def test_watchdog_is_armed_each_step_and_stays_quiet(monkeypatch, capsys):
+    _CountingWatchdog.armed = []
+    monkeypatch.setattr(train, "Watchdog", _CountingWatchdog)
+    train.main(SMOKE + ["--steps", "3", "--watchdog-s", "60"])
+    out = capsys.readouterr().out
+    assert _CountingWatchdog.armed == [60.0] * 3
+    assert "[train] 3 steps in" in out and "[watchdog]" not in out
+
+
+def _slowed(make_step):
+    def slow_make_step(*args, **kw):
+        bundle = make_step(*args, **kw)
+        fn = bundle.fn
+
+        def step(*a):
+            time.sleep(0.5)
+            return fn(*a)
+        bundle.fn = step
+        return bundle
+    return slow_make_step
+
+
+def test_watchdog_reports_a_hung_step_as_the_reference_does(monkeypatch,
+                                                            capsys):
+    """Each launcher's step slowed to 0.5 s past a 0.05 s watchdog: both
+    print the same one report."""
+    from repro.launch import train as jax_train
+    monkeypatch.setattr(train, "make_train_step",
+                        _slowed(train.make_train_step))
+    monkeypatch.setattr(jax_train, "make_train_step",
+                        _slowed(jax_train.make_train_step))
+    flags = ["--steps", "1", "--watchdog-s", "0.05"]
+    train.main(SMOKE + flags)
+    port = capsys.readouterr().out.splitlines()
+    monkeypatch.setattr(sys, "argv", ["train"] + [
+        a for a in SMOKE if a not in ("--device", "cpu")] + flags)
+    jax_train.main()
+    ref = capsys.readouterr().out.splitlines()
+    assert [ln for ln in port if "[watchdog]" in ln] == \
+        [ln for ln in ref if "[watchdog]" in ln] == ["[watchdog] step hung"]
+    assert any(ln.startswith("[train] 1 steps in") for ln in port)
