@@ -73,7 +73,16 @@ into an engine and served; the kernel is then held bit for bit against its
 plain version on that training tree and timed, and ``remat_outputs`` holds
 one ``value_and_grad`` under remat "outputs" against "none" (and
 "nothing"), with each one's peak memory. ``reference_check`` also runs
-one f32 train step on the card against the CPU.
+one f32 train step on the card against the CPU. Then ``mesh_1x1``: the
+same model trained through the sharded step on a 1x1 NCCL ``DeviceMesh``
+(recipe ``tp``, ZeRO-1), bit-equal to the one-device step, saved
+through the manager (the gathered state; the fingerprint kernel's
+launches are read for the main path), ``reshard_restore``-d onto the
+mesh bit for bit, its prefill step's logits equal to one device's,
+``compressed_psum`` on the 64000 x 4096 embedding gradient equal to the
+same call on the CPU, and the train launcher with ``--mesh 1x1``; and
+``mesh_archs``: every arch's f32 smoke model under each recipe through
+the meshed train, prefill and decode steps, bit-equal to one device.
 
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
@@ -1877,6 +1886,235 @@ def phase_train(dev, layers: int, steps: int) -> dict:
     return out
 
 
+def _leaves_equal(a: dict, b: dict) -> bool:
+    """Every leaf of two trees (DTensors by their full tensors) bit-equal,
+    one leaf at a time."""
+    from repro_torch.sharding.ctx import full_tree
+    fa, fb = _flat(a), _flat(b)
+    if sorted(fa) != sorted(fb):
+        return False
+    for k in fa:
+        x, y = full_tree(fa[k]), full_tree(fb[k])
+        if x.dtype != y.dtype or not torch.equal(x.to(y.device), y):
+            return False
+    return True
+
+
+def phase_mesh_1x1(dev, layers: int, steps: int) -> dict:
+    """The sharded trainer on a 1x1 NCCL mesh: full-width yi-6b cut to
+    ``layers``, recipe ``tp``, ZeRO-1, the train phase's traffic (4 x 2048
+    tokens, seed 0), through ``make_train_step(mesh=make_mesh((1, 1)))``.
+    Held bit for bit against the one-device step on the same weights and
+    batches (loss, grad norm, every updated leaf); then one fingerprinted
+    save through the manager (the gathered state, written by rank 0),
+    ``reshard_restore`` onto the mesh (bit-equal), the prefill step at 1x1
+    against the one-device one (logits bit-equal), ``compressed_psum`` on
+    the embedding's gradient against the same call on the CPU, and
+    ``launch.train --mesh 1x1 --smoke`` for 4 steps. The fingerprint
+    launches are counted from the first mesh step to the restore. Both
+    trained states sit on the card at once (2 x 18 GB)."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
+    from repro_torch.ckpt import reshard_restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.fingerprint.ops import fingerprint_leaves
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.sharding import spec_tree
+    from repro_torch.train import TrainConfig, make_prefill_step, \
+        make_train_step
+    from repro_torch.train.step import value_and_grad
+    cfg = get_config("yi-6b").replace(n_layers=layers)
+    batch, seq = 4, 2048
+    tcfg = TrainConfig(adamw=AdamWConfig(peak_lr=3e-3, warmup_steps=10,
+                                         decay_steps=200, weight_decay=0.0),
+                       recipe="tp", zero1=True)
+    ds = SyntheticTokens(cfg.vocab, batch=batch, seq=seq, seed=0)
+    res = {"layers": layers, "batch": batch, "seq": seq}
+
+    def run(mesh):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        opt = init_opt_state(params)
+        bundle = make_train_step(cfg, tcfg, batch, seq, dev, mesh=mesh)
+        mets, secs = [], []
+        for s in range(steps):
+            _sync(dev)
+            t = time.perf_counter()
+            params, opt, met = bundle.fn(params, opt, ds.batch_at(s))
+            _sync(dev)
+            secs.append(time.perf_counter() - t)
+            mets.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+        return params, opt, mets, secs, bundle
+
+    t0 = time.perf_counter()
+    p1, o1, m1, s1, _ = run(None)
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    res["backend"] = dist.get_backend()
+    # ---- the main path: launches are counted from here to the restore
+    fingerprint_leaves.launches = 0
+    p2, o2, m2, s2, bundle = run(mesh)
+    check(m1 == m2, f"loss / grad norm on the 1x1 mesh {m2}, one device {m1}")
+    check(_leaves_equal({"p": p2, "o": o2}, {"p": p1, "o": o1}),
+          "an updated leaf on the 1x1 mesh differs from one device's")
+    del p1, o1
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mgr = CheckpointManager(root, cfg.name, CheckpointPolicy(
+            use_fingerprints=True, async_write=False, chunk_bytes=1 << 20))
+        t = time.perf_counter()
+        rep = mgr.save(steps, p2, o2)
+        res["save_s"] = time.perf_counter() - t
+        check(rep.layers_built == 6, "the sharded save did not build 6 layers")
+        check(mgr.store.verify_image(mgr.image, mgr.tag_of(steps)) == [],
+              "the sharded save fails verification")
+        t = time.perf_counter()
+        rp, ro, rstep = reshard_restore(mgr, mesh,
+                                        spec_tree(bundle.in_shardings[0]),
+                                        spec_tree(bundle.in_shardings[1]))
+        _sync(dev)
+        res["reshard_restore_s"] = time.perf_counter() - t
+        res["launches"] = fingerprint_leaves.launches
+        # ---- end of the main path
+        check(rstep == steps and _leaves_equal({"p": rp, "o": ro},
+                                               {"p": p2, "o": o2}),
+              "reshard_restore differs from the saved state")
+        del rp, ro
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(res["launches"] >= int(dev.type == "cuda"), "the sharded save "
+          "never launched the fingerprint kernel")
+
+    prompts = make_prompts(cfg, batch, 128)
+    plain = make_prefill_step(cfg, batch, 128, dev).fn(_local_tree(p2),
+                                                         prompts)[1]
+    sharded = make_prefill_step(cfg, batch, 128, dev, mesh=mesh).fn(
+        p2, prompts)[1]
+    check(torch.equal(plain, sharded), "the 1x1 prefill's logits differ")
+
+    _, _, grads = value_and_grad(cfg, _local_tree(p2), {
+        k: torch.as_tensor(v, device=dev) for k, v in
+        SyntheticTokens(cfg.vocab, 2, seq, seed=0).batch_at(0).items()})
+    g = grads[len(tree_leaves(p2["blocks"]))].float()     # embed
+    check(g.shape == p2["embed"].shape, f"embed grad {tuple(g.shape)}")
+    res["compressed_psum_shape"] = list(g.shape)
+    del grads
+    err = torch.randn(g.shape, generator=torch.Generator(device=dev)
+                      .manual_seed(3), device=dev) * 1e-4
+    _sync(dev)
+    t = time.perf_counter()
+    mean, new_err = compressed_psum(g, err, "data", mesh=mesh)
+    _sync(dev)
+    res["compressed_psum_s"] = time.perf_counter() - t
+    cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu",
+                                     mesh_dim_names=("data",))
+    cmean, cerr = compressed_psum(g.cpu(), err.cpu(), "data", mesh=cpu_mesh)
+    res["compressed_psum_err"] = {
+        "mean": float((mean.cpu() - cmean).abs().max()),
+        "err": float((new_err.cpu() - cerr).abs().max())}
+    check(torch.equal(mean.cpu(), cmean) and torch.equal(new_err.cpu(), cerr),
+          f"compressed_psum card vs CPU: {res['compressed_psum_err']}")
+    del g, err, mean, new_err, p2, o2
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    ck = tempfile.mkdtemp(prefix="chip_smoke_mesh_cli_")
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(["--arch", "yi-6b", "--smoke", "--steps", "4",
+                            "--batch", "2", "--seq", "64", "--mesh", "1x1",
+                            "--device", dev.type, "--ckpt", ck,
+                            "--ckpt-every", "2"])
+        res["launcher_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    text = buf.getvalue()
+    check("[train] 4 steps in" in text and "mesh 1x1" in text,
+          f"the launcher did not train on the mesh:\n{text}")
+    res.update(one_device=m1, mesh=m2, one_device_step_s=s1, mesh_step_s=s2,
+               bit_equal=True, launcher=text.strip().splitlines()[-1],
+               seconds=time.perf_counter() - t0)
+    log("mesh_1x1", **res)
+    return res
+
+
+MESH_ARCH_RECIPES = (None, "sp", "dp")   # None: recipe_for's choice
+
+
+def phase_mesh_archs(dev) -> dict:
+    """Every arch's f32 smoke model on the 1x1 NCCL mesh against one
+    device, for each recipe of ``MESH_ARCH_RECIPES`` (``sp`` routes the moe
+    archs through ``_moe_local``): one train step (loss, grad norm and
+    every updated leaf bit-equal), then the meshed prefill (4 x 24) and
+    two decode steps (logits bit-equal). A 1x1 mesh keeps DTensor's
+    sharding propagation (size-1 dims stay ``Shard``), so this is where
+    the card's torch takes or refuses each family's meshed operations."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import TrainConfig, make_decode_step, \
+        make_prefill_step, make_train_step
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    t0 = time.perf_counter()
+    recipes = {}
+    B, S = 4, 24
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                             compute_dtype="float32")
+        batch = SyntheticTokens(cfg.vocab, B, S, seed=4).batch_at(0)
+        toks = batch["tokens"]
+        for name in MESH_ARCH_RECIPES:
+            runs = []
+            for m in (None, mesh):
+                p = init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(4), dev)
+                b = make_train_step(cfg, TrainConfig(recipe=name), B, S, dev,
+                                    mesh=m)
+                p, o, met = b.fn(p, init_opt_state(p), batch)
+                _, logits = make_prefill_step(cfg, B, S, dev, mesh=m,
+                                              recipe_name=name).fn(p, toks)
+                dec = make_decode_step(cfg, B, S, dev, mesh=m)
+                cache = init_cache(cfg, B, S, dev)
+                steps = []
+                for pos in range(2):
+                    cache, lg = dec.fn(p, cache, toks[:, pos], pos)
+                    steps.append(lg)
+                runs.append(({"p": p, "o": o}, met, logits, steps,
+                             b.recipe.name if b.recipe else None))
+            (t1, m1, l1, d1, _), (t2, m2, l2, d2, rname) = runs
+            check(all(float(m1[k]) == float(m2[k])
+                      for k in ("loss", "grad_norm")) and
+                  _leaves_equal(t2, t1),
+                  f"{arch}, recipe {rname}: the 1x1 step differs")
+            check(torch.equal(l1, l2) and all(
+                torch.equal(a, c) for a, c in zip(d1, d2)),
+                f"{arch}, recipe {rname}: 1x1 prefill/decode logits differ")
+            recipes.setdefault(arch, []).append(rname)
+    res = {"recipes": recipes, "seconds": time.perf_counter() - t0,
+           "bit_equal": True}
+    log("mesh_archs", **res)
+    return res
+
+
+def _local_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    return tree.to_local() if hasattr(tree, "to_local") else tree
+
+
 def run_model(arch: str, dev, edit: str, edit_layer: int, batch: int,
               prompt_len: int, new_tokens: int, follower: str, extras=(),
               layers=None) -> dict:
@@ -1982,6 +2220,13 @@ def main() -> int:
 
     # slice 5: the training half at yi-6b's full width, depth cut to fit
     tr = phase_train(dev, layers=TRAIN_LAYERS, steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+
+    # slice 10: the sharded trainer on a 1x1 NCCL mesh (several ranks on
+    # one card would need gloo, whose all-gather of CUDA tensors crashes:
+    # PERF.md §7)
+    mesh = phase_mesh_1x1(dev, layers=TRAIN_LAYERS, steps=TRAIN_STEPS)
+    phase_mesh_archs(dev)
 
     fp_row = _row("fingerprint",
                   "src/repro_torch/kernels/fingerprint/csrc/fingerprint.cu",
@@ -1994,6 +2239,7 @@ def main() -> int:
                   launches_hybrid_path=fp_hybrid_launches,
                   launches_mla_path=fp_mla_launches,
                   launches_train_path=tr["launches"],
+                  launches_mesh_path=mesh["launches"],
                   launches_store_paths=store_paths,
                   launches_fingerprint_tree=fp_tree["launches"],
                   fingerprint_tree={k: fp_tree[k] for k in (

@@ -1,3 +1,4 @@
 from .manager import CheckpointManager, CheckpointPolicy
+from .reshard import reshard_restore
 
-__all__ = ["CheckpointManager", "CheckpointPolicy"]
+__all__ = ["CheckpointManager", "CheckpointPolicy", "reshard_restore"]

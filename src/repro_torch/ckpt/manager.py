@@ -38,6 +38,13 @@ then published as bundles (the head in full, plus one squashed bundle
 per ``publish_spans`` entry) under a signed index, for followers that
 pull without a live peer.
 
+Trees with DTensor leaves (a train step on a mesh) save as their full
+tensors: every rank takes part in the gather, ONLY rank 0 writes the
+store (and runs the fingerprint kernel on its gathered leaves), and a
+barrier follows, so that no rank reads a half-written commit (with
+``async_write``, in ``wait()``, which every rank calls at the same points).
+``ckpt.reshard.reshard_restore`` lays a restore onto any mesh.
+
 Several managers may share ONE store (``store=``), each under its own
 ``image=``; ``base_image=`` forks a tenant's first save from another image
 of that store, and ``replicate()`` ships a checkpoint to replica stores as
@@ -52,6 +59,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core import (BuildReport, Instruction, LayerStore, PassiveRegistry,
                     RelayNode, diff_image, fingerprint_tree,
@@ -201,6 +210,7 @@ class CheckpointManager:
         self._pending: Optional[Future] = None
         self._last_fps: Dict[str, np.ndarray] = {}
         self.last_report: Optional[BuildReport] = None
+        self._barrier_due = False      # a sharded save's closing barrier
 
     # ------------------------------------------------------------ layout
     def _instructions(self) -> List[Instruction]:
@@ -241,15 +251,30 @@ class CheckpointManager:
         if self._pending is not None:
             pending, self._pending = self._pending, None
             self.last_report = pending.result()
+        if self._barrier_due:
+            self._barrier_due = False
+            dist.barrier()
         return self.last_report
 
     def save(self, step: int, params, opt_state) -> BuildReport:
         """Full or incremental save per policy. Synchronous: returns its
         BuildReport. With ``async_write``: copies the state, hands the save
         to the writer and returns an empty BuildReport, as the reference
-        does; ``wait()`` gives the real one."""
+        does; ``wait()`` gives the real one. With DTensor leaves every rank
+        calls it: all gather, rank 0 writes, and the others return an empty
+        BuildReport."""
         self.wait()
         payloads = self._payloads(params, opt_state, step)
+        if any(isinstance(t, DTensor) for tree in payloads.values()
+               for t in tree.values()):
+            payloads = {k: {n: t.full_tensor() if isinstance(t, DTensor)
+                            else t for n, t in tree.items()}
+                        for k, tree in payloads.items()}
+            self._barrier_due = True
+            if dist.get_rank() != 0:
+                if not self.policy.async_write:
+                    self.wait()
+                return BuildReport()
         if self.policy.incremental and self.latest_step() is not None:
             fn = self._save_incremental
         else:
@@ -261,6 +286,7 @@ class CheckpointManager:
             return BuildReport()
         report = fn(step, payloads)
         self.last_report = report
+        self.wait()                 # a sharded save's barrier
         return report
 
     def _compute_fps(self, payloads: Dict[str, Dict[str, torch.Tensor]],

@@ -1,3 +1,3 @@
-from .pipeline import SyntheticTokens, make_batch
+from .pipeline import SyntheticTokens, make_batch, make_global_batch
 
-__all__ = ["SyntheticTokens", "make_batch"]
+__all__ = ["SyntheticTokens", "make_batch", "make_global_batch"]

@@ -5,10 +5,10 @@ Tokens are a pure function of (seed, step, global position) via a splitmix
 hash, so any host can materialize exactly its shard without coordination,
 and resuming at step k regenerates the identical batch k.
 
-The reference's ``make_global_batch`` assembles sharded arrays from
-per-shard callbacks; it waits for the port's sharding (a torch
-``DeviceMesh``), so it is not here yet. On one device the train step moves
-a host batch to the card itself.
+``make_global_batch`` lays a host batch onto a ``DeviceMesh`` as DTensors,
+each rank building only its own shard (the reference's per-shard
+callbacks). On one device the train step moves a host batch to the card
+itself.
 """
 from __future__ import annotations
 
@@ -16,6 +16,10 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
+
+from ..sharding.ctx import from_full
+from ..sharding.rules import PartitionSpec
 
 
 def _splitmix(x: np.ndarray) -> np.ndarray:
@@ -60,3 +64,15 @@ def make_batch(ds: SyntheticTokens, step: int,
         b["prefix_embeds"] = prefix_embeds
         b["mask"][:, :prefix_embeds.shape[1]] = 0.0
     return b
+
+
+def make_global_batch(mesh, specs: Dict[str, PartitionSpec],
+                      host_batch: Dict[str, np.ndarray]):
+    """DTensors on ``mesh`` from a host batch that every rank can compute:
+    each rank builds only its own block of each array, at ``specs``'s
+    placements (``sharding.ctx.from_full``; the index is the one the
+    reference's per-shard callbacks get for the device at the same mesh
+    position). Names without a spec are replicated."""
+    return {name: from_full(torch.as_tensor(np.asarray(arr)), mesh,
+                            specs.get(name, PartitionSpec()))
+            for name, arr in host_batch.items()}

@@ -22,8 +22,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
+import functools
 
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..sharding.ctx import local_call, settle
 from .layers import as_torch_dtype, recomputed, rounded
 
 NEG_INF = -1e30
@@ -165,8 +169,15 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (B, 1, Hq, Dk); caches: (B, C, KVH, D); cache_positions: (C,) the
     absolute position stored in each cache slot (ring-aware); pos: the
-    current token's position (its K/V must already be in the cache).
+    current token's position (its K/V must already be in the cache). On
+    DTensors (a mesh) each rank computes its own batch rows over the
+    whole cache (``_on_local_shards``).
     """
+    if isinstance(q, DTensor):
+        def local(a, b, c):
+            return attention_decode(a, b, c, cache_positions, pos,
+                                    window=window, scale=scale)
+        return _on_local_shards(local, q, k_cache, v_cache, keep_dims=(0,))
     KVH = k_cache.shape[2]
     qh = _split_heads(_scale(q, scale), KVH)               # (B,KVH,G,1,D)
     kh = k_cache.permute(0, 2, 1, 3)                       # (B,KVH,C,D)
@@ -184,7 +195,14 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 def attention(q, k, v, *, causal=True, window=None, impl="auto",
               kv_block=512, q_block=512, scale=None,
               score_dtype=torch.float32):
-    """Dispatcher used by model blocks (self-attention, S_q == S_kv)."""
+    """Dispatcher used by model blocks (self-attention, S_q == S_kv). On
+    DTensors (a mesh) it runs on each rank's own batch rows and heads
+    (``_on_local_shards``)."""
+    if isinstance(q, DTensor):
+        return _on_local_shards(functools.partial(
+            attention, causal=causal, window=window, impl=impl,
+            kv_block=kv_block, q_block=q_block, scale=scale,
+            score_dtype=score_dtype), q, k, v, keep_dims=(0, 2))
     if impl == "auto":
         impl = "banded" if (window is not None and window < q.shape[1]) \
             else "blockwise"
@@ -196,6 +214,23 @@ def attention(q, k, v, *, causal=True, window=None, impl="auto",
     return attention_blockwise(q, k, v, causal=causal, window=window,
                                kv_block=kv_block, scale=scale,
                                score_dtype=score_dtype)
+
+
+def _on_local_shards(fn, q, k, v, keep_dims):
+    """``fn(q, k, v)`` on each rank's blocks: attention is independent per
+    batch row and head, so each rank computes its own with no collective,
+    and its grads are those blocks' own. q keeps its shards of
+    ``keep_dims`` (batch and heads in self-attention, where k and v come
+    with q's head count; batch alone at decode, against a whole cache) and
+    every other dim is gathered, a sequence-sharded query or cache among
+    them; k and v take q's layout. DTensor's matrix products cannot
+    flatten the (batch, heads) dims when both are sharded (torch 2.11),
+    nor broadcast the grouped products as the plain ones do, which kept a
+    meshed decode from giving one device's bits."""
+    pl = [p if isinstance(p, Shard) and p.dim in keep_dims else Replicate()
+          for p in settle(q).placements]
+    run = local_call(fn, q.device_mesh, pl, [pl] * 3, [pl] * 3)
+    return run(settle(q), settle(k), settle(v))
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

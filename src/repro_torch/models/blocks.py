@@ -16,16 +16,24 @@ block caches its (kv_lora_rank + rope) latent. Decode updates the K/V and
 latent cache tensors IN PLACE (the JAX code returns new arrays; the port
 writes one slot instead of copying the cache every step) and returns the
 same tensors; the SSM states come back as new tensors, as in JAX, and the
-caller writes them into its stacked cache. The moe block runs the
-reference's non-sharded branch only (``_moe_local`` and the psum path wait
-for the port's sharding).
+caller writes them into its stacked cache.
+
+``constrain(x, name)`` pins named activations to the recipe's placements
+at each of the reference's sites (a no-op outside a launcher's
+``activation_ctx`` and on plain tensors). Under a rule table with
+"moe_local" the moe block routes each shard's tokens on its own
+(``_moe_local``); otherwise it routes all B*S tokens into one capacity
+buffer, as the reference does.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..sharding.ctx import (constrain, current_mesh, current_rules,
+                            local_call, partial_over, placements)
 from .attention import attention, attention_decode
 from .config import ModelConfig
 from .layers import (apply_rope, as_torch_dtype, dense, proj_heads,
@@ -48,7 +56,8 @@ def _qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     v = proj_heads(x, p["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return constrain(q, "act_q"), constrain(k, "act_kv"), \
+        constrain(v, "act_kv")
 
 
 def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
@@ -56,16 +65,18 @@ def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
     """-> (attn output (B,S,d), k, v)."""
     q, k, v = _qkv(cfg, p, h, positions)
     rep = cfg.n_heads // cfg.n_kv_heads
-    o = attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep), causal=True,
-                  window=cfg.window, impl=cfg.attn_impl,
-                  kv_block=cfg.kv_block, q_block=cfg.q_block,
-                  score_dtype=cfg.score_dtype)
+    kr = constrain(_repeat_kv(k, rep), "act_kv_rep")
+    vr = constrain(_repeat_kv(v, rep), "act_kv_rep")
+    o = attention(q, kr, vr, causal=True, window=cfg.window,
+                  impl=cfg.attn_impl, kv_block=cfg.kv_block,
+                  q_block=cfg.q_block, score_dtype=cfg.score_dtype)
+    o = constrain(o, "act_q")
     return unproj_heads(o, p["wo"]), k, v
 
 
 def _mlp(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
-    g = dense(h, p["w_gate"])
-    u = dense(h, p["w_up"])
+    g = constrain(dense(h, p["w_gate"]), "act_ffh")
+    u = constrain(dense(h, p["w_up"]), "act_ffh")
     if cfg.act == "swiglu":
         hh = torch.nn.functional.silu(g) * u
     else:
@@ -83,7 +94,10 @@ def _ring_tail(k: torch.Tensor, C: int) -> torch.Tensor:
         return torch.cat([pad, k], dim=1)
     tail = k[:, -C:]
     shift = S % C
-    return torch.roll(tail, shift, dims=1) if shift else tail
+    # torch.roll(tail, shift, dims=1) as two slices: DTensor has no
+    # strategy for roll (torch 2.11)
+    return torch.cat([tail[:, C - shift:], tail[:, :C - shift]], dim=1) \
+        if shift else tail
 
 
 def _kv_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
@@ -104,9 +118,23 @@ def _cache_positions(cache_len: int, pos: int, device) -> torch.Tensor:
 def _kv_cache_insert(cache: Dict, k_t: torch.Tensor, v_t: torch.Tensor,
                      pos: int) -> Dict:
     slot = pos % cache["k"].shape[1]
-    cache["k"][:, slot:slot + 1] = k_t
-    cache["v"][:, slot:slot + 1] = v_t
-    return cache
+    k = _write_slot(cache["k"], slot, k_t)
+    v = _write_slot(cache["v"], slot, v_t)
+    return {"k": constrain(k, "cache_kv"), "v": constrain(v, "cache_kv")}
+
+
+def _write_slot(buf: torch.Tensor, slot: int, val: torch.Tensor
+                ) -> torch.Tensor:
+    """``buf[:, slot] = val``: in place on a plain tensor. A DTensor cache
+    (a mesh's, its length sharded) gets a new tensor instead, the slot
+    chosen by a mask that each shard applies to its own positions: a write
+    through a view of a DTensor can land in a gathered copy."""
+    if not isinstance(buf, DTensor):
+        buf[:, slot:slot + 1] = val
+        return buf
+    hit = torch.arange(buf.shape[1], device=buf.device) == slot
+    return torch.where(hit.reshape((1, -1) + (1,) * (buf.ndim - 2)), val,
+                       buf)
 
 
 def _attn_decode(cfg: ModelConfig, p: Dict, cache: Dict, x_t: torch.Tensor,
@@ -188,11 +216,12 @@ def _block_out(cfg: ModelConfig, fn, *args):
 
 def apply_dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                       positions: torch.Tensor, collect_cache: bool = False):
-    h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+    # "act_block_in": under tp_sp the Megatron-SP gather point
+    h = constrain(rms_norm(x, p["attn_norm"], cfg.rms_eps), "act_block_in")
     a, k, v = _block_out(cfg, _self_attention, cfg, p, h, positions)
-    x = x + a
-    h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
-    x = x + _block_out(cfg, _mlp, cfg, p, h)
+    x = constrain(x + a, "act_hidden")
+    h = constrain(rms_norm(x, p["mlp_norm"], cfg.rms_eps), "act_block_in")
+    x = constrain(x + _block_out(cfg, _mlp, cfg, p, h), "act_hidden")
     cache = None
     if collect_cache:
         C = cfg.cache_len(x.shape[1])
@@ -236,17 +265,71 @@ def _moe(cfg: ModelConfig, p: Dict, h2d: torch.Tensor):
                    act=cfg.act)
 
 
+_MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
+
+
+def _moe_local(cfg: ModelConfig, p: Dict, h: torch.Tensor, spec):
+    """Fully-local MoE (the reference's ``shard_map`` over the token axes):
+    each rank routes its own tokens of ``h`` (laid out by ``spec``) into its
+    own capacity buffer against REPLICATED expert weights, whose grads are
+    summed over the token axes; the router aux loss is averaged over them
+    (the reference's ``pmean``). Used when the rule table provides
+    "moe_local" (small-expert archs under sp)."""
+    mesh = current_mesh()
+    n = mesh.ndim
+    hp = placements(mesh, spec, 3)
+    rep = [Replicate()] * n
+    # one aux per token shard: a vector sharded over the token axes, whose
+    # mean is the pmean
+    aux_p = [Shard(0) if isinstance(q, Shard) else Replicate() for q in hp]
+
+    def body(hb, router, wg, wu, wd):
+        B, S, d = hb.shape
+        y, aux = moe_ffn(hb.reshape(B * S, d), router, wg, wu, wd,
+                         top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return y.reshape(B, S, d), aux.reshape(1)
+
+    fn = local_call(body, mesh, (hp, aux_p), [hp] + [rep] * 4,
+                    [hp] + [partial_over(mesh, spec, 3)] * 4)
+    y, aux = fn(h, *(p[k] for k in _MOE_KEYS))
+    return y, aux.mean()
+
+
+def _moe_global(cfg: ModelConfig, p: Dict, h2d: torch.Tensor):
+    """``_moe`` over all tokens at once. DTensor has no sharding strategy
+    for the sort-based dispatch, so on a mesh the tokens and weights are
+    gathered (replicated) and every rank routes the whole set, as the
+    reference's partitioner computes it: same tokens, same capacity."""
+    if not isinstance(h2d, DTensor):
+        return _moe(cfg, p, h2d)
+    mesh = h2d.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    fn = local_call(lambda *a: _moe(cfg, dict(zip(_MOE_KEYS, a[1:])), a[0]),
+                    mesh, (rep, rep), [rep] * 5, [rep] * 5)
+    return fn(h2d, *(p[k] for k in _MOE_KEYS))
+
+
 def apply_moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                     positions: torch.Tensor, collect_cache: bool = False):
-    """The reference's non-sharded branch: all B*S tokens are routed
-    together, into one capacity buffer."""
     B, S, d = x.shape
     h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
     a, k, v = _self_attention(cfg, p, h, positions)
-    x = x + a
+    x = constrain(x + a, "act_hidden")
     h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
-    y, aux = _moe(cfg, p, h.reshape(B * S, d))
-    x = x + y.reshape(B, S, d)
+    local = current_rules().get("moe_local")
+    if local is not None:
+        # fully-local dispatch (see _moe_local)
+        y3, aux = _moe_local(cfg, p, h, local)
+        x = constrain(x + y3, "act_hidden")
+    else:
+        # pin the MoE input layout (all-gather in, reduce-scatter out: the
+        # Megatron-SP MoE pattern) so flattening (B,S) never mixes sharded
+        # dims inside the sort-based dispatch
+        h = constrain(h, "act_moe_in")
+        y, aux = _moe_global(cfg, p, h.reshape(B * S, d))
+        x = constrain(x + constrain(y.reshape(B, S, d), "act_moe_out"),
+                      "act_hidden")
     cache = None
     if collect_cache:
         C = cfg.cache_len(S)
@@ -260,7 +343,7 @@ def decode_moe_block(cfg: ModelConfig, p: Dict, cache: Dict,
     cache, a = _attn_decode(cfg, p, cache, h, pos)
     x_t = x_t + a
     h = rms_norm(x_t, p["mlp_norm"], cfg.rms_eps)
-    y, _ = _moe(cfg, p, h)
+    y, _ = _moe_global(cfg, p, h)
     return cache, x_t + y
 
 
@@ -297,7 +380,7 @@ def _mla_qkv(cfg: ModelConfig, p: Dict, h: torch.Tensor,
     q = proj_heads(qa, p["wq_b"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    q = torch.cat([q_nope, q_rope], dim=-1)
+    q = constrain(torch.cat([q_nope, q_rope], dim=-1), "act_q")
     kv_a = dense(h, p["wkv_a"])
     c_kv = rms_norm(kv_a[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.rms_eps)
     k_rope = apply_rope(kv_a[..., cfg.kv_lora_rank:], positions,
@@ -319,13 +402,15 @@ def apply_mla_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope)],
                   dim=-1)
-    o = attention(q, k, v, causal=True, window=cfg.window,
-                  impl=cfg.attn_impl, kv_block=cfg.kv_block,
-                  q_block=cfg.q_block, scale=(nope + rope) ** -0.5,
-                  score_dtype=cfg.score_dtype)
-    x = x + unproj_heads(o, p["wo"])
+    k = constrain(k, "act_q")
+    o = attention(q, k, constrain(v, "act_q"), causal=True,
+                  window=cfg.window, impl=cfg.attn_impl,
+                  kv_block=cfg.kv_block, q_block=cfg.q_block,
+                  scale=(nope + rope) ** -0.5, score_dtype=cfg.score_dtype)
+    x = constrain(x + unproj_heads(constrain(o, "act_q"), p["wo"]),
+                  "act_hidden")
     h = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
-    x = x + _mlp(cfg, p, h)
+    x = constrain(x + _mlp(cfg, p, h), "act_hidden")
     cache = None
     if collect_cache:
         cache = {"c_kv": c_kv, "k_rope": k_rope}
@@ -354,8 +439,10 @@ def decode_mla_block(cfg: ModelConfig, p: Dict, cache: Dict,
     q_nope, q_rope = q[..., :nope], q[..., nope:]               # (B,1,H,·)
     C = cache["c_kv"].shape[1]
     slot = pos % C
-    cache["c_kv"][:, slot:slot + 1] = c_kv
-    cache["k_rope"][:, slot:slot + 1] = k_rope
+    cache = {"c_kv": constrain(_write_slot(cache["c_kv"], slot, c_kv),
+                               "cache_latent"),
+             "k_rope": constrain(_write_slot(cache["k_rope"], slot, k_rope),
+                                 "cache_latent")}
     c_cache = cache["c_kv"].float()
     r_cache = cache["k_rope"].float()
     # absorb W_UK into q:   q_abs = q_nope @ W_UK^T  -> latent space
@@ -442,8 +529,8 @@ def ssm_scan_inputs(cfg: ModelConfig, p: Dict, h: torch.Tensor):
     """The first half of ``apply_ssm_core``: projections, causal convs and
     step sizes. h: (B, S, d) normed -> (z, (x_pre, B_pre, C_pre), scan)
     where ``scan`` holds the SSD inputs x, dt, A, Bc, Cc, D by name."""
-    z = proj_heads(h, p["w_z"])                              # (B,S,H,P)
-    x_pre = proj_heads(h, p["w_x"])
+    z = constrain(proj_heads(h, p["w_z"]), "act_ssm")       # (B,S,H,P)
+    x_pre = constrain(proj_heads(h, p["w_x"]), "act_ssm")
     B_pre = proj_heads(h, p["w_B"])                          # (B,S,G,N)
     C_pre = proj_heads(h, p["w_C"])
     dt = dense(h, p["w_dt"])                                 # (B,S,H)
@@ -494,7 +581,7 @@ def apply_ssm_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                     positions: torch.Tensor, collect_cache: bool = False):
     h = rms_norm(x, p["norm"], cfg.rms_eps)
     y, cache = apply_ssm_core(cfg, p, h, collect_cache)
-    return x + y, _no_aux(x), cache
+    return constrain(x + y, "act_hidden"), _no_aux(x), cache
 
 
 def ssm_cache_init(cfg: ModelConfig, batch: int, cache_len: int = 0, *,
@@ -569,9 +656,9 @@ def apply_hybrid_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     ssm_out, ssm_cache = apply_ssm_core(cfg, p["ssm"], h, collect_cache)
     fused = 0.5 * (rms_norm(attn_out, p["attn_fuse_norm"], cfg.rms_eps) +
                    rms_norm(ssm_out, p["ssm_fuse_norm"], cfg.rms_eps))
-    x = x + fused
+    x = constrain(x + fused, "act_hidden")
     h2 = rms_norm(x, p["mlp_norm"], cfg.rms_eps)
-    x = x + _mlp(cfg, p, h2)
+    x = constrain(x + _mlp(cfg, p, h2), "act_hidden")
     cache = None
     if collect_cache:
         C = cfg.cache_len(x.shape[1])

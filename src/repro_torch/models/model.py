@@ -19,8 +19,10 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as tckpt
 
+from ..sharding.ctx import constrain, settle
 from .blocks import FAMILY_APPLY, FAMILY_DECODE, FAMILY_INIT, init_layer_cache
 from .config import ModelConfig
 from .layers import (as_torch_dtype, dense, recomputed, rms_norm, rounded,
@@ -140,7 +142,9 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         # first n_prefix positions
         P = prefix_embeds.shape[1]
         x = torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
-    return x
+    # on a mesh: a vocab-sharded lookup leaves a pending sum; settle it at
+    # the residual stream's layout before any norm reads it
+    return constrain(x, "act_hidden")
 
 
 def backbone(cfg: ModelConfig, params: Dict, x: torch.Tensor,
@@ -179,9 +183,10 @@ def token_loss(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     logit_dtype = as_torch_dtype(cfg.logit_dtype)
 
     def chunk_loss(h, l, m, W):
-        logits = dense(h, W).to(logit_dtype).masked_fill(pad, -1e30)
+        logits = constrain(dense(h, W).to(logit_dtype), "logits_chunk")
+        logits = logits.masked_fill(pad, -1e30)
         lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, l[..., None])[..., 0]
+        picked = settle(torch.gather(logits, -1, l[..., None]))[..., 0]
         ce = (lse - picked) * m
         return ce.sum(), m.sum()
 
@@ -247,16 +252,24 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 ) -> Tuple[Dict, torch.Tensor]:
     """One decode step. tokens: (B,) int; pos: the position being generated,
     whose K/V enter the cache. The stacked cache is updated in place: K/V
-    slots by the blocks, SSM states copied in from what the block returns.
-    Returns (cache, logits (B, padded vocab))."""
+    slots by the blocks, SSM states copied in from what the block returns
+    (DTensor caches, on a mesh, are rebuilt instead and the new dict
+    returned). Returns (cache, logits (B, padded vocab))."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens)
+    sharded = any(isinstance(v, DTensor) for v in cache.values())
+    layers = []
     for i, p in enumerate(_unstack(params["blocks"])):
         layer_cache = {k: v[i] for k, v in cache.items()}
         new, x = FAMILY_DECODE[cfg.family](cfg, p, layer_cache, x, pos)
+        if sharded:         # DTensor caches come back as new tensors
+            layers.append(new)
+            continue
         for k, t in new.items():
             if t is not layer_cache[k]:
                 cache[k][i].copy_(t)
+    if sharded:
+        cache = {k: torch.stack([c[k] for c in layers]) for k in cache}
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = dense(x, lm_head_weight(cfg, params)) \
         .to(as_torch_dtype(cfg.logit_dtype))

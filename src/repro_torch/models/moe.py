@@ -10,12 +10,21 @@ same from run to run. Tokens over capacity are dropped (standard
 capacity-factor routing, reproduced token for token: at decode, T = batch,
 the capacity is often 1); the router aux loss (load-balancing, Switch eq.
 4) is returned for the train loss.
+
+Under a mesh the block calls ``moe_ffn`` on each rank's own tokens
+(``blocks._moe_local``, the reference's ``shard_map`` over the token axes)
+and, where expert weights shard their hidden dim over a mesh dimension,
+``psum_axis`` names it: w_down's partial outputs are summed over that
+dimension's process group, the dense TP FFN's collective.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed.nn.functional as dist_fn
+
+from ..sharding.ctx import current_mesh
 
 
 def route(x: torch.Tensor, w_router: torch.Tensor, top_k: int
@@ -73,11 +82,10 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d); expert weights: (E, d, f) / (E, f, d).
 
-    Returns (out (T, d), aux_loss). ``psum_axis`` (the sharded path) waits
-    for the port's sharding and raises."""
-    if psum_axis is not None:
-        raise NotImplementedError(
-            f"psum_axis={psum_axis!r}: the sharded MoE path is not ported")
+    Returns (out (T, d), aux_loss). If ``psum_axis`` is given the caller
+    runs on local shards (inside ``sharding.local_call``, in an
+    ``activation_ctx`` with a mesh) and w_down's output is summed over that
+    mesh dimension (differentiably: the sum's backward sums the grads)."""
     T, d = x.shape
     E = w_router.shape[-1]
     capacity = max(1, int(T * top_k * capacity_factor / E))
@@ -94,6 +102,8 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     g = torch.bmm(buf, w_gate.to(x.dtype))
     u = torch.bmm(buf, w_up.to(x.dtype))
     y = torch.bmm(_act(g, u, act), w_down.to(x.dtype))
+    if psum_axis is not None:
+        y = psum(y, psum_axis)
     y = y.reshape(E * capacity, d)
 
     # gather back with routing weights
@@ -102,6 +112,15 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     weighted = picked * torch.where(keep, gate.reshape(-1), 0)[:, None] \
         .to(x.dtype)
     return sum_contributions(weighted.reshape(T, top_k, d)), aux
+
+
+def psum(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """``jax.lax.psum`` over one mesh dimension of local tensors."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        raise ValueError(f"psum over {axis!r} needs a mesh: call it inside "
+                         "activation_ctx(rules, mesh)")
+    return dist_fn.all_reduce(x, group=mesh.get_group(axis))
 
 
 def sum_contributions(weighted: torch.Tensor) -> torch.Tensor:

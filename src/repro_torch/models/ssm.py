@@ -17,12 +17,18 @@ Shapes:
     Cc  (B, S, G, N)    output projections
     D   (H,)            skip connection
 state: (B, H, P, N) float32.
+
+On DTensors (a mesh) ``ssd_chunked`` runs on each rank's own batch rows
+(``_ssd_on_local_shards``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..sharding.ctx import local_call, settle
 
 
 def _expand_groups(t: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -38,6 +44,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 chunk: int = 128, h0: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) f32)."""
+    if isinstance(x, DTensor):
+        return _ssd_on_local_shards(x, dt, A, Bc, Cc, D, chunk, h0)
     B, S, H, P = x.shape
     N = Bc.shape[-1]
     chunk = min(chunk, S)
@@ -99,6 +107,27 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.stack(ys, dim=1).reshape(B, S, H, P)
     y = y + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), h
+
+
+def _ssd_on_local_shards(x, dt, A, Bc, Cc, D, chunk, h0):
+    """``ssd_chunked`` on each rank's batch rows, every other dim whole:
+    the scan is independent per row, so it needs no collective; A and D
+    are read by every row, so their grads are summed over the batch's
+    mesh dims. DTensor has no strategy for the scan's operations under
+    every torch (2.11: the backward of ``cumsum``, ``aten.flip``)."""
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in settle(x).placements]
+    whole = [Replicate()] * len(rows)
+    summed = [Partial() if isinstance(p, Shard) else Replicate()
+              for p in rows]
+
+    def local(x, dt, A, Bc, Cc, D):
+        return ssd_chunked(x, dt, A, Bc, Cc, D, chunk=chunk, h0=h0)
+
+    run = local_call(local, x.device_mesh, (rows, rows),
+                     [rows, rows, whole, rows, rows, whole],
+                     [rows, rows, summed, rows, rows, summed])
+    return run(*(settle(t) for t in (x, dt, A, Bc, Cc, D)))
 
 
 def ssd_reference(x, dt, A, Bc, Cc, D, h0=None):

@@ -11,6 +11,14 @@ step donates its inputs; in place keeps the device at 16 bytes a parameter
 with the grads) and returns the same trees. A caller that must keep the
 state of a step, such as an asynchronous save, copies it first
 (``CheckpointManager.save`` does).
+
+Over DTensor trees (a train step on a mesh) each leaf keeps its placements:
+the params at their recipe's, master/m/v at the optimizer's (ZeRO-1:
+``sharding.rules.opt_specs`` shards them over the axes the params are
+replicated on). The grads are reduced to the optimizer's placements (a
+reduce-scatter where ZeRO-1 shards), the global norm is taken over the
+full tensors, and each new master is cast to its param's dtype and then
+gathered back to the param's placements.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclass(frozen=True)
@@ -88,7 +97,8 @@ def apply_update(cfg: AdamWConfig, params, opt_state, grads
     opt_state["step"] += 1
     step = opt_state["step"].to(torch.float32)
     lr = lr_at(cfg, opt_state["step"])
-    flat_g = tree_leaves(grads)
+    flat_g = [_reduced_to(g, master) for g, master in
+              zip(tree_leaves(grads), tree_leaves(opt_state["master"]))]
     gnorm = global_norm(flat_g)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
@@ -105,5 +115,17 @@ def apply_update(cfg: AdamWConfig, params, opt_state, grads
         mh, vh = m / bc1, v / bc2
         master.sub_(lr * (mh / (torch.sqrt(vh) + cfg.eps) +
                           cfg.weight_decay * master))
-        p.copy_(master)
+        if isinstance(p, DTensor):
+            p.copy_(master.to(p.dtype).redistribute(p.device_mesh,
+                                                    p.placements))
+        else:
+            p.copy_(master)
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _reduced_to(g: torch.Tensor, master: torch.Tensor) -> torch.Tensor:
+    """A DTensor grad (pending sums over the batch axes, a param's
+    placements) reduced to its optimizer leaf's placements."""
+    if not isinstance(g, DTensor):
+        return g
+    return g.redistribute(master.device_mesh, master.placements)

@@ -4,8 +4,9 @@ serving slice, the moe and mla families, the follower, the training
 quickstart, the scrub and chaos CLIs, the multi-tenant, elastic-restart
 and prompt-tuning examples run in a process where those cannot be
 imported, and the port's analyzer where torch cannot be imported either;
-and the port's entry points refuse to drop to the CPU when no card is
-present and none was asked for."""
+so do a 2-rank train step on a mesh and ``reshard_restore``; and the
+port's entry points (``make_mesh`` among them) refuse to drop to the CPU
+when no card is present and none was asked for."""
 import ast
 import os
 import subprocess
@@ -333,9 +334,64 @@ def test_restore_without_a_device_refuses_the_cpu(no_gpu, tmp_path):
     assert mgr.restore(device="cpu")[2] == 0
 
 
+def test_make_mesh_without_a_device_refuses_the_cpu(no_gpu):
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 1), ("data", "model"), device="cuda")
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+_BLOCKED_MESH = r"""
+import sys
+for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch.local_ranks import join_from_env
+rank, world = join_from_env(timeout_s=60)
+from repro_torch.ckpt import CheckpointManager, CheckpointPolicy
+from repro_torch.ckpt import reshard_restore
+from repro_torch.configs import get_smoke_config
+from repro_torch.data import SyntheticTokens
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import init_params
+from repro_torch.optim import init_opt_state
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.sharding import full_tree, spec_tree
+from repro_torch.train import TrainConfig, make_train_step
+cfg = get_smoke_config("yi-6b")
+mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+b = make_train_step(cfg, TrainConfig(), 4, 16, mesh=mesh)
+p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+p, o, met = b.fn(p, init_opt_state(p), SyntheticTokens(cfg.vocab, 4, 16)
+                 .batch_at(0))
+mgr = CheckpointManager(sys.argv[1], cfg.name,
+                        CheckpointPolicy(async_write=False))
+mgr.save(1, p, o)
+got = reshard_restore(mgr, mesh, spec_tree(b.in_shardings[0]))
+assert all(torch.equal(a, c) for a, c in
+           zip(tree_leaves(full_tree(p)), tree_leaves(full_tree(got[0]))))
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("mesh-ok", rank, float(met["loss"]) > 0)
+"""
+
+
+def test_mesh_step_and_reshard_run_with_jax_and_repro_unimportable(tmp_path):
+    from repro_torch.launch.local_ranks import spawn_ranks
+    script = tmp_path / "body.py"
+    script.write_text(_BLOCKED_MESH)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    outs = spawn_ranks(2, [sys.executable, str(script),
+                           str(tmp_path / "store")], str(tmp_path / "ranks"),
+                       120, env)
+    assert [o.strip() for o in outs] == ["mesh-ok 0 True", "mesh-ok 1 True"]

@@ -207,10 +207,81 @@ def test_gather_back_sums_k_contributions_in_index_order():
     assert not np.array_equal(_np(reverse), want)
 
 
-def test_psum_axis_waits_for_sharding():
-    (_, _, _, _, _), (x, r, g, u, dn) = _both(_weights(6, 8, 4, 8, 8))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tmoe.moe_ffn(x, r, g, u, dn, top_k=2, psum_axis="model")
+_PSUM_JAX = """
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.models.moe import moe_ffn
+from repro.sharding.ctx import shard_map_fn
+w = np.load(IN)
+mesh = jax.make_mesh((2,), ("model",))
+body = lambda x, r, g, u, d: moe_ffn(x, r, g, u, d, top_k=2,
+                                     capacity_factor=2.0, psum_axis="model")
+kw = dict(mesh=mesh, in_specs=(P(), P(), P(None, None, "model"),
+                               P(None, None, "model"), P(None, "model")),
+          out_specs=(P(), P()))
+try:
+    fn = shard_map_fn()(body, check_rep=False, **kw)
+except TypeError:
+    fn = shard_map_fn()(body, check_vma=False, **kw)
+out, aux = jax.jit(fn)(*(jnp.asarray(w[k]) for k in "xrgud"))
+np.savez(OUT, out=np.asarray(out), aux=np.asarray(aux))
+"""
+
+_PSUM_PORT = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch.local_ranks import join_from_env
+rank, world = join_from_env(timeout_s=60)
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.moe import moe_ffn
+from repro_torch.sharding import activation_ctx
+w = {k: torch.from_numpy(v) for k, v in np.load(sys.argv[1]).items()}
+mesh = make_mesh((2,), ("model",), device="cpu")
+f = w["g"].shape[-1] // 2
+part = slice(rank * f, (rank + 1) * f)
+with activation_ctx({}, mesh):
+    out, aux = moe_ffn(w["x"], w["r"], w["g"][..., part], w["u"][..., part],
+                       w["d"][:, part], top_k=2, capacity_factor=2.0,
+                       psum_axis="model")
+np.savez(f"{sys.argv[2]}{rank}.npz", out=out.numpy(), aux=aux.numpy())
+"""
+
+
+def test_psum_axis_sums_w_down_over_the_mesh_as_jax_shard_map(tmp_path):
+    """``psum_axis="model"``: expert hidden dims split over 2 ranks (the
+    port's gloo ranks, JAX's ``shard_map`` on 2 forced host devices); both
+    ranks' outputs equal JAX's, and the one-device ``moe_ffn`` on the whole
+    weights, within the f32 tolerance."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.launch.local_ranks import spawn_ranks
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    x, r, g, u, dn = _weights(11, 12, 4, 8, 16)
+    np.savez(tmp_path / "w.npz", x=x, r=r, g=g, u=u, d=dn)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    code = f"IN, OUT = {str(tmp_path / 'w.npz')!r}, " \
+        f"{str(tmp_path / 'jax.npz')!r}\n" + _PSUM_JAX
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    script = tmp_path / "port.py"
+    script.write_text(_PSUM_PORT)
+    env.pop("XLA_FLAGS")
+    spawn_ranks(2, [sys.executable, str(script), str(tmp_path / "w.npz"),
+                    str(tmp_path / "port")], str(tmp_path / "ranks"), 120, env)
+    want = np.load(tmp_path / "jax.npz")
+    whole, _ = tmoe.moe_ffn(*(torch.from_numpy(a) for a in (x, r, g, u, dn)),
+                            top_k=2, capacity_factor=2.0)
+    for rank in range(2):
+        got = np.load(tmp_path / f"port{rank}.npz")
+        assert np.abs(got["out"] - want["out"]).max() <= F32_TOL
+        assert abs(float(got["aux"]) - float(want["aux"])) <= F32_TOL
+        assert np.abs(got["out"] - whole.numpy()).max() <= F32_TOL
 
 
 def test_bf16_moe_blocks_match_jax_layer_by_layer():

@@ -41,6 +41,7 @@ from repro_torch.ckpt import CheckpointManager, CheckpointPolicy  # noqa: E402
 from repro_torch.convert import params_from_jax, tree_to_numpy  # noqa: E402
 from repro_torch.data import SyntheticTokens, make_batch  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.sharding.ctx import full_tree  # noqa: E402
 from repro_torch.train import TrainConfig, make_train_step  # noqa: E402
 from repro_torch.train.step import value_and_grad  # noqa: E402
 
@@ -379,11 +380,43 @@ def test_train_step_matches_the_references_on_a_1x1_mesh():
     assert int(topt2["step"]) == int(jopt2["step"]) == 1
 
 
-def test_train_step_options_that_wait_for_sharding_raise():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="the port of sharding"):
-        make_train_step(tcfg, TrainConfig(grad_compression="int8_ef"), 4, 16,
-                        device="cpu")
+def test_grad_compression_is_read_nowhere_as_in_the_reference():
+    """``grad_compression="int8_ef"``: the reference's step reads the field
+    nowhere and trains uncompressed; the port's does the same, here on a
+    1x1 mesh of each package, from the same weights (the tolerances of the
+    1x1 test above)."""
+    from repro.launch.mesh import make_mesh, mesh_context
+    from repro.train import TrainConfig as JaxTrainConfig
+    from repro.train import make_train_step as jax_train_step
+    from repro_torch.launch.mesh import make_mesh as torch_mesh
+    cfg, tcfg = _cfgs()
+    B, S = 4, 16
+    batch = JaxTokens(cfg.vocab, B, S, seed=2).batch_at(0)
+    jp = jm.init_params(cfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(_np_tree(jp), "cpu")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    with mesh_context(mesh):
+        jb = jax_train_step(cfg, JaxTrainConfig(grad_compression="int8_ef"),
+                            mesh, B, S)
+        jp2, jopt2, jmet = jb.fn(jp, jo.init_opt_state(jp),
+                                 {k: jnp.asarray(v) for k, v in batch.items()})
+    bundle = make_train_step(tcfg, TrainConfig(grad_compression="int8_ef"),
+                             B, S, mesh=torch_mesh((1, 1), ("data", "model"),
+                                                   device="cpu"))
+    tp2, topt2, tmet = bundle.fn(tp, to.init_opt_state(tp), batch)
+    tp2, topt2 = full_tree(tp2), full_tree(topt2)
+    for k in ("loss", "ce"):
+        assert abs(float(tmet[k]) - float(jmet[k])) <= LOSS_F32_TOL, k
+    assert _rel_err(tmet["lr"], jmet["lr"]) <= ADAMW_REL_TOL
+    assert _abs_tol_err(tmet["grad_norm"], jmet["grad_norm"]) <= GRAD_TOL
+    want = _flat(_np_tree(jp2))
+    for name, t in _flat(tp2).items():
+        assert _abs_tol_err(t, want[name]) <= GRAD_TOL, name
+    for k in ("master", "m", "v"):
+        want = _flat(_np_tree(jopt2[k]))
+        for name, t in _flat(topt2[k]).items():
+            assert _abs_tol_err(t, want[name]) <= GRAD_TOL, (k, name)
+    assert int(topt2["step"]) == int(jopt2["step"]) == 1
 
 
 def test_grad_reduce_dtype_casts_the_accumulated_grads(monkeypatch):

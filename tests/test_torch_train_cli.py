@@ -3,13 +3,15 @@ run short, and ``python -m repro_torch.launch.train``, whose resumed run
 must end bit-identical to an uninterrupted one; ``--watchdog-s`` arms the
 step watchdog around each step, which stays quiet on a healthy step and
 prints the reference's ``[watchdog] step hung`` on a slow one. Without a
-card and without ``--device`` the launcher raises, and the option that
-waits for the port of ``sharding/`` raises ``NotImplementedError``."""
+card and without ``--device`` the launcher raises. ``--mesh 2x1`` runs on
+two ranks under ``torchrun`` (gloo on the CPU), held against ``--mesh
+1x1``; a mesh larger than the world raises."""
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -68,10 +70,75 @@ def test_launcher_without_a_card_refuses_the_cpu(monkeypatch):
         train.main(["--arch", "yi-6b", "--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x1"]], ids=["mesh"])
-def test_options_waiting_for_other_parts_raise(flag):
-    with pytest.raises(NotImplementedError):
-        train.main(SMOKE + ["--steps", "1"] + flag)
+_F32_LAUNCHER = """
+import sys
+from repro_torch.launch import train
+smoke = train.get_smoke_config
+train.get_smoke_config = lambda arch: smoke(arch).replace(
+    param_dtype="float32", compute_dtype="float32")
+train.main(sys.argv[1:])
+"""
+
+
+def _losses(out):
+    return [float(ln.split("loss=")[1].split()[0]) for ln in out.splitlines()
+            if ln.startswith("[train] step ")]
+
+
+def _torchrun(tmp_path, args):
+    script = tmp_path / "launch_f32.py"
+    script.write_text(_F32_LAUNCHER)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(script)] + SMOKE + args,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
+
+
+def test_mesh_2x1_under_torchrun_matches_1x1_and_resumes(tmp_path, capsys,
+                                                         monkeypatch):
+    """``--mesh 2x1 --device cpu`` on two torchrun ranks, f32: the losses of
+    ``--mesh 1x1`` (to the print's 4 decimals) and its checkpointed state
+    within 1e-5 relative per leaf; rank 0 alone prints and writes one
+    image a save; the resumed run ends bit-identical to an uninterrupted
+    one."""
+    smoke = train.get_smoke_config
+    monkeypatch.setattr(train, "get_smoke_config", lambda arch: smoke(
+        arch).replace(param_dtype="float32", compute_dtype="float32"))
+    one = str(tmp_path / "one")
+    train.main(SMOKE + ["--ckpt", one, "--steps", "4", "--mesh", "1x1"])
+    want = _losses(capsys.readouterr().out)
+    resumed, straight = str(tmp_path / "resumed"), str(tmp_path / "straight")
+    out = _torchrun(tmp_path, ["--mesh", "2x1", "--ckpt", resumed,
+                               "--steps", "4"])
+    got = _losses(out)
+    assert len(got) == len(want) == 4 and out.count("[train] 4 steps") == 1
+    assert np.allclose(got, want, rtol=0, atol=5e-5), (got, want)
+    w4, g4 = _payload(one, 4), _payload(resumed, 4)
+    assert sorted(w4) == sorted(g4)
+    for name in w4:
+        a, b = g4[name].double(), w4[name].double()
+        assert float((a - b).abs().max()) <= \
+            1e-5 * max(float(b.abs().max()), 1e-30), name
+    out = _torchrun(tmp_path, ["--mesh", "2x1", "--ckpt", resumed,
+                               "--steps", "6"])
+    assert out.count("[train] resumed from step 4") == 1
+    _torchrun(tmp_path, ["--mesh", "2x1", "--ckpt", straight, "--steps", "6"])
+    got, want = _payload(resumed, 6), _payload(straight, 6)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    store = LayerStore(resumed)
+    assert store.list_tags("ckpt") == [f"step-{s:08d}" for s in (2, 4, 6)]
+    assert store.verify_image("ckpt", "step-00000006", deep=True) == []
+
+
+def test_mesh_larger_than_the_world_raises():
+    with pytest.raises((RuntimeError, ValueError), match="ranks"):
+        train.main(SMOKE + ["--steps", "1", "--mesh", "2x1"])
 
 
 class _CountingWatchdog(train.Watchdog):
