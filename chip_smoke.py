@@ -84,6 +84,18 @@ same call on the CPU, and the train launcher with ``--mesh 1x1``; and
 ``mesh_archs``: every arch's f32 smoke model under each recipe through
 the meshed train, prefill and decode steps, bit-equal to one device.
 
+The roofline and the dry-run: ``roofline`` (after ``train``) counts one
+train step of the train phase's model, and the 8-layer serving model's
+prefill and decode steps, with ``repro_torch.roofline`` on the card's
+tensors and again traced on fake tensors in the same process; the FLOP
+counts must be equal, and each is printed beside its roofline terms
+(one H100) and the step's measured time (``train_flops``'s hand count
+beside the train step's). ``dryrun``: four cells of
+``python -m repro_torch.launch.dryrun`` at production size on fake
+worlds of 256 and 512 ranks (``DRYRUN_CELLS``), traced on the host by a
+thread started with the script, one subprocess after another while the
+card runs the other phases; each must end with ``ok: true``.
+
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -2143,6 +2155,205 @@ def run_model(arch: str, dev, edit: str, edit_layer: int, batch: int,
     return out
 
 
+ROOFLINE_SERVE_BATCH, ROOFLINE_PROMPT, ROOFLINE_CACHE = 4, 128, 168
+
+
+def _roofline_held(kind: str, fn, args, model_flops: float, reps: int,
+                   dev) -> dict:
+    """``fn(*args)`` counted by ``roofline.analyze_step`` on the real
+    tensors and again traced under ``FakeTensorMode`` (the dry-run's way)
+    from fakes of the same tensors: the FLOP counts must be equal; each
+    operation whose bytes differ is logged. The step is then timed with the
+    counter off (its Python adds host time to every operation)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.roofline import HW, analyze_step
+    common = dict(arch="yi-6b", shape=kind, mesh_name="one", recipe="",
+                  model_flops=model_flops, n_devices=1)
+    real = analyze_step(fn, args, **common)
+    _sync(dev)
+    fake_mode = FakeTensorMode()
+
+    def fake(t):
+        if isinstance(t, dict):
+            return {k: fake(v) for k, v in t.items()}
+        return fake_mode.from_tensor(t) if isinstance(t, torch.Tensor) else t
+    fake_args = [fake(a) for a in args]
+    with fake_mode:
+        traced = analyze_step(fn, fake_args, **common)
+    check(real.flops_per_device > 0 and real.bytes_per_device > 0,
+          f"{kind}: nothing counted on the card")
+    check(real.flops_per_device == traced.flops_per_device,
+          f"{kind}: {real.flops_per_device} FLOPs counted on the card, "
+          f"{traced.flops_per_device} traced on fake tensors")
+    byte_diffs = {op: [real.by_op.get(op, [0, 0, 0])[2],
+                       traced.by_op.get(op, [0, 0, 0])[2]]
+                  for op in sorted(set(real.by_op) | set(traced.by_op))
+                  if real.by_op.get(op, [0, 0, 0])[2]
+                  != traced.by_op.get(op, [0, 0, 0])[2]}
+    step_ms = _host_ms(lambda: fn(*args), reps, dev)
+    terms = real.terms(HW())
+    bound_s = max(terms["compute_s"], terms["memory_s"],
+                  terms["collective_s"])
+    res = {"flops": real.flops_per_device,
+           "flops_traced": traced.flops_per_device,
+           "bytes": real.bytes_per_device,
+           "bytes_traced": traced.bytes_per_device,
+           "byte_diffs_by_op": byte_diffs,
+           "operations": sum(v[0] for v in real.by_op.values()),
+           "model_flops": model_flops, "terms": terms,
+           "bound_ms": bound_s * 1e3, "step_ms": step_ms,
+           "step_over_bound": step_ms / (bound_s * 1e3),
+           "temp_bytes_traced": traced.temp_bytes,
+           "count_seconds": real.compile_seconds,
+           "trace_seconds": traced.compile_seconds}
+    log(f"roofline_{kind}", **res)
+    return res
+
+
+def phase_roofline(dev) -> dict:
+    """The roofline counter held against what runs on the card: the train
+    phase's model (yi-6b, full width, ``TRAIN_LAYERS`` layers, 4 x 2048
+    tokens) for one train step, and the serving phase's (``YI_SERVE_LAYERS``
+    layers, 4 prompts of 128 tokens) for its prefill and one decode step.
+    Each is counted on the real tensors and traced on fake ones
+    (``_roofline_held``); the train step's count is printed beside
+    ``train_flops``'s hand count."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import (TrainConfig, make_decode_step,
+                                   make_prefill_step, make_train_step)
+    t0 = time.perf_counter()
+    out = {}
+    cfg = get_config("yi-6b").replace(n_layers=TRAIN_LAYERS)
+    batch, seq = 4, 2048
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = init_opt_state(params)
+    host = SyntheticTokens(cfg.vocab, batch=batch, seq=seq, seed=0).batch_at(0)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    step = make_train_step(cfg, TrainConfig(), batch, seq, dev).fn
+    n = cfg.active_param_count()
+    out["train"] = _roofline_held("train", step, [params, opt, data],
+                                  6.0 * n * batch * seq, 2, dev)
+    hand = train_flops(cfg, batch, seq)
+    out["train"].update(hand_flops=hand,
+                        hand_over_counted=hand / out["train"]["flops"])
+    log("roofline_train_hand", layers=TRAIN_LAYERS, hand_flops=hand,
+        counted_flops=out["train"]["flops"],
+        hand_over_counted=out["train"]["hand_over_counted"])
+    del params, opt, step
+    torch.cuda.empty_cache()
+
+    cfg = get_config("yi-6b").replace(n_layers=YI_SERVE_LAYERS)
+    B, S = ROOFLINE_SERVE_BATCH, ROOFLINE_PROMPT
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n = cfg.active_param_count()
+    toks = torch.as_tensor(make_prompts(cfg, B, S), device=dev)
+    prefill = make_prefill_step(cfg, B, S, dev).fn
+    out["prefill"] = _roofline_held("prefill", prefill, [params, toks],
+                                    2.0 * n * B * S, 3, dev)
+    cache = init_cache(cfg, B, ROOFLINE_CACHE, dev)
+    decode = make_decode_step(cfg, B, ROOFLINE_CACHE, dev).fn
+    out["decode"] = _roofline_held("decode", decode,
+                                   [params, cache, toks[:, -1], S],
+                                   2.0 * n * B, 5, dev)
+    del params, cache
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("roofline", seconds=out["seconds"])
+    return out
+
+
+# the dry-run cells chip_smoke traces at production size: the dense train
+# and decode steps on the pod, the sharded MoE prefill on two pods (512
+# ranks), and the SSM scan on local batch rows at 500k tokens
+DRYRUN_CELLS = (("yi-6b", "train_4k", "pod"), ("yi-6b", "decode_32k", "pod"),
+                ("mixtral-8x7b", "prefill_32k", "multipod"),
+                ("hymba-1.5b", "long_500k", "pod"))
+DRYRUN_TAG = "chip_smoke"
+DRYRUN_TIMEOUT_S = 900
+
+
+class DryRun:
+    """The dry-run cells, one ``python -m repro_torch.launch.dryrun``
+    subprocess each, run one after another on a thread from the start of
+    the script: they trace fake tensors on the host while the other phases
+    use the card. ``finish`` waits for them and reads each cell's result;
+    ``stop`` kills a cell still running."""
+
+    def __init__(self):
+        import threading
+        self.results, self.proc, self.stopped = {}, None, False
+        self.lock = threading.Lock()
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        from repro_torch.launch.dryrun import result_path
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        for arch, shape, mesh in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--device", "cuda", "--tag", DRYRUN_TAG]
+            t = time.perf_counter()
+            with self.lock:
+                if self.stopped:
+                    return
+                self.proc = subprocess.Popen(
+                    cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+            try:
+                tail = self.proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                tail = self.proc.communicate()[0] + "\n(timed out)"
+            path = result_path(arch, shape, mesh, DRYRUN_TAG)
+            rec = {"rc": self.proc.returncode, "tail": tail[-2000:],
+                   "wall_s": time.perf_counter() - t}
+            if os.path.exists(path):
+                with open(path) as f:
+                    rec["result"] = json.load(f)
+            self.results[(arch, shape, mesh)] = rec
+
+    def stop(self) -> None:
+        with self.lock:
+            self.stopped = True
+            if self.proc is not None and self.proc.poll() is None:
+                self.proc.kill()
+        self.thread.join(timeout=60)
+
+    def finish(self) -> dict:
+        t = time.perf_counter()
+        self.thread.join(timeout=DRYRUN_TIMEOUT_S * len(DRYRUN_CELLS))
+        check(not self.thread.is_alive(), "the dry-run cells did not end")
+        waited = time.perf_counter() - t
+        for cell in DRYRUN_CELLS:
+            rec = self.results.get(cell)
+            check(rec is not None, f"dry-run cell {cell} did not run")
+            d = rec.get("result", {})
+            check(rec["rc"] == 0 and d.get("ok"),
+                  f"dry-run cell {cell} failed (exit {rec['rc']}): "
+                  f"{d.get('error')}\n{rec['tail']}")
+            check(d["flops_per_device"] > 0 and d["bytes_per_device"] > 0
+                  and all(np.isfinite(v) for v in d["terms"].values()
+                          if not isinstance(v, str)),
+                  f"dry-run cell {cell}: empty or non-finite terms")
+            log("dryrun_cell", arch=cell[0], shape=cell[1], mesh=cell[2],
+                recipe=d["recipe"], terms=d["terms"],
+                flops_per_device=d["flops_per_device"],
+                bytes_per_device=d["bytes_per_device"],
+                coll_bytes=d["coll_bytes"], temp_bytes=d["temp_bytes"],
+                trace_seconds=d["compile_seconds"], wall_s=rec["wall_s"],
+                device=d["device"], torch=d["torch"])
+        res = {"cells": len(DRYRUN_CELLS), "waited_s": waited,
+               "since_start_s": time.perf_counter() - self.t0}
+        log("dryrun", **res)
+        return res
+
+
 def _row(name, source, replaces, launches, res, others=()) -> dict:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2165,7 +2376,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    dry = DryRun()
+    try:
+        return _main(dev, dry, t_start)
+    finally:
+        dry.stop()
 
+
+def _main(dev, dry: DryRun, t_start: float) -> int:
     phase_build()
     phase_kernel_edges(dev)
     phase_flash_edges(dev)
@@ -2222,11 +2440,16 @@ def main() -> int:
     tr = phase_train(dev, layers=TRAIN_LAYERS, steps=TRAIN_STEPS)
     torch.cuda.empty_cache()
 
+    # slice 11: the roofline counter against the card, then the dry-run
+    # cells that have been tracing on the host since the start
+    phase_roofline(dev)
+
     # slice 10: the sharded trainer on a 1x1 NCCL mesh (several ranks on
     # one card would need gloo, whose all-gather of CUDA tensors crashes:
     # PERF.md §7)
     mesh = phase_mesh_1x1(dev, layers=TRAIN_LAYERS, steps=TRAIN_STEPS)
     phase_mesh_archs(dev)
+    dry.finish()
 
     fp_row = _row("fingerprint",
                   "src/repro_torch/kernels/fingerprint/csrc/fingerprint.cu",

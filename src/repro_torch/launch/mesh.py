@@ -6,9 +6,8 @@ test): ``make_mesh`` lays the mesh over the ranks of the group that is
 initialized. Where none is and the mesh has one device, it starts a
 single-rank group itself: NCCL for ``cuda``, gloo for ``cpu``. A mesh larger
 than the world raises, and so does one that does not fill it.
-
-``make_production_mesh`` (256 and 512 chips) is not here: its only user is
-the dry-run, which is not ported yet.
+``make_production_mesh`` never starts a group: the dry-run starts a fake
+world of 256 or 512 ranks first.
 """
 from __future__ import annotations
 
@@ -55,6 +54,17 @@ def make_mesh(shape, axes, device=None) -> DeviceMesh:
         raise ValueError(f"mesh {shape} has {n} devices; the world has "
                          f"{world} ranks")
     return init_device_mesh(device.type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> DeviceMesh:
+    """The reference's production meshes: (16, 16) ("data", "model") over
+    256 ranks, or (2, 16, 16) ("pod", "data", "model") over 512, where the
+    "pod" axis carries only data parallelism and the inter-pod gradient
+    all-reduce."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
 
 
 def mesh_context(mesh):

@@ -22,7 +22,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as tckpt
 
-from ..sharding.ctx import constrain, settle
+from ..sharding.ctx import constrain, in_current_ctx, settle
 from .blocks import FAMILY_APPLY, FAMILY_DECODE, FAMILY_INIT, init_layer_cache
 from .config import ModelConfig
 from .layers import (as_torch_dtype, dense, recomputed, rms_norm, rounded,
@@ -125,8 +125,8 @@ def _remat(cfg: ModelConfig, fn):
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return tckpt.checkpoint(fn, *args, use_reentrant=False,
-                                context_fn=context_fn)
+        return tckpt.checkpoint(in_current_ctx(fn), *args,
+                                use_reentrant=False, context_fn=context_fn)
     return wrapped
 
 
@@ -139,9 +139,17 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         x = x * rounded(cfg.d_model ** 0.5, x.dtype)
     if prefix_embeds is not None:
         # modality stub: precomputed patch/frame embeddings occupy the
-        # first n_prefix positions
-        P = prefix_embeds.shape[1]
-        x = torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
+        # first n_prefix positions. On a mesh the lookup's pending sum is
+        # settled first (carried through a cat, DTensor would check its mask
+        # by value, which a trace on fake tensors cannot), and the prefix is
+        # selected, not concatenated: a cat's backward leaves the lookup a
+        # pending-sum gradient that DTensor cannot turn back into its mask
+        pe = prefix_embeds.to(x.dtype)
+        B, P, d = pe.shape
+        S = x.shape[1]
+        first = torch.arange(S, device=x.device)[None, :, None] < P
+        padded = torch.cat([pe, pe.new_zeros((B, S - P, d))], dim=1)
+        x = torch.where(first, padded, settle(x))
     # on a mesh: a vocab-sharded lookup leaves a pending sum; settle it at
     # the residual stream's layout before any norm reads it
     return constrain(x, "act_hidden")
@@ -262,6 +270,10 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     for i, p in enumerate(_unstack(params["blocks"])):
         layer_cache = {k: v[i] for k, v in cache.items()}
         new, x = FAMILY_DECODE[cfg.family](cfg, p, layer_cache, x, pos)
+        # one layout for the residual between layers, as the reference's
+        # scan carry has (left free, DTensor's strategies drift it to an
+        # uneven split of the heads that it cannot flatten)
+        x = constrain(x, "act_hidden")
         if sharded:         # DTensor caches come back as new tensors
             layers.append(new)
             continue

@@ -39,7 +39,11 @@ def route(x: torch.Tensor, w_router: torch.Tensor, top_k: int
     # Switch load-balance aux: E * sum_e f_e * p_e
     E = w_router.shape[-1]
     me = probs.mean(dim=0)                                   # (E,)
-    ce = torch.bincount(experts.reshape(-1), minlength=E).float()
+    # assignments an expert (``bincount``'s counts, at a static shape: the
+    # dry-run traces this under FakeTensorMode)
+    flat = experts.reshape(-1)
+    ce = torch.zeros(E, dtype=flat.dtype, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
     ce = ce / torch.clamp(ce.sum(), min=1.0)
     aux = E * torch.sum(me * ce)
     return gate, experts, aux

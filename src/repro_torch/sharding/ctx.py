@@ -27,8 +27,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import (implicit_replication,
-                                                   local_map)
+from torch.distributed.tensor.experimental import local_map
 
 from .rules import PartitionSpec, mesh_sizes
 
@@ -164,10 +163,42 @@ def activation_ctx(rules: Dict[str, Optional[PartitionSpec]], mesh=None):
         if mesh is None:
             yield
         else:
-            with implicit_replication():
+            with _replicating():
                 yield
     finally:
         _CTX.reset(token)
+
+
+@contextlib.contextmanager
+def _replicating():
+    """DTensor's ``implicit_replication``, restoring the flag it found on
+    exit (torch's sets it to False, which would end an enclosing one: a
+    recompute's context inside the step's)."""
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+def in_current_ctx(fn):
+    """``fn`` bound to the rules and mesh in force now. A checkpointed body
+    is recomputed in backward, which autograd runs on a thread of its own
+    for CUDA tensors (fake ones too), where this thread's context is not
+    seen: unbound, the recompute would skip every ``constrain`` and lay
+    its activations out otherwise than the forward did."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        if _CTX.get() is ctx:
+            return fn(*args, **kwargs)
+        with activation_ctx(*ctx):
+            return fn(*args, **kwargs)
+    return bound
 
 
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
