@@ -90,11 +90,21 @@ prefill and decode steps, with ``repro_torch.roofline`` on the card's
 tensors and again traced on fake tensors in the same process; the FLOP
 counts must be equal, and each is printed beside its roofline terms
 (one H100) and the step's measured time (``train_flops``'s hand count
-beside the train step's). ``dryrun``: four cells of
+beside the train step's). ``dryrun``: five cells of
 ``python -m repro_torch.launch.dryrun`` at production size on fake
 worlds of 256 and 512 ranks (``DRYRUN_CELLS``), traced on the host by a
 thread started with the script, one subprocess after another while the
-card runs the other phases; each must end with ``ok: true``.
+card runs the other phases; each must end with ``ok: true``, and three
+must stay inside ``DRYRUN_LIMITS``: yi-6b's meshed decode under 100 MB
+of collective bytes a step, mixtral-8x7b's prefill on two pods at ten
+times its old useful FLOP share or more, gemma-2b's prefill under "sp"
+below its old memory term.
+
+``split_attention`` (after ``mesh_archs``) runs what each rank of those
+meshed paths computes, at production width on the card: the split-cache
+decode of one yi-6b layer's full cache over 16 length blocks, merged by
+flash-decoding's combine, and the query-offset attention over 16 query
+blocks, each against the unsplit function, bf16 and f32.
 
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
@@ -2121,6 +2131,86 @@ def phase_mesh_archs(dev) -> dict:
     return res
 
 
+SPLIT_DECODE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+QUERY_BLOCKS_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def phase_split_attention(dev) -> dict:
+    """What each rank of a meshed step computes, on the card at production
+    width (two ranks cannot share the card): the split-cache decode of one
+    yi-6b layer's full cache (B 8, C 32,768, KVH 4, Hq 32, D 128), cut into
+    16 blocks along its length as a 16-wide "model" axis cuts it, each
+    block's ``decode_partials`` at its global slot positions, merged by
+    ``combine_partials``; and the query-offset attention at yi-6b's width
+    (S 4096, 16 query blocks, causal), each block through
+    ``attention_blockwise`` at its global offset. Each against the unsplit
+    function on the same card tensors, bf16 and f32, and timed beside it
+    (the 16 blocks run one after another here)."""
+    from repro_torch.models.attention import (attention, attention_blockwise,
+                                              attention_decode,
+                                              combine_partials,
+                                              decode_partials, finish_decode)
+    from repro_torch.models.blocks import _cache_positions
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(24)
+    B, C, KVH, Hq, D, parts = 8, 32768, 4, 32, 128, 16
+    pos = C + C // 3                     # a ring that has wrapped
+    cpos = _cache_positions(C, pos, dev)
+    step = C // parts
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn((B, 1, Hq, D), generator=g, device=dev).to(dt)
+        k = torch.randn((B, C, KVH, D), generator=g, device=dev).to(dt)
+        v = torch.randn((B, C, KVH, D), generator=g, device=dev).to(dt)
+
+        def split():
+            blocks = [decode_partials(q, k[:, a:a + step], v[:, a:a + step],
+                                      cpos[a:a + step], pos)
+                      for a in range(0, C, step)]
+            m, l, acc = (torch.stack(t) for t in zip(*blocks))
+            return finish_decode(combine_partials(m, l, acc), q.dtype)
+
+        def whole():
+            return attention_decode(q, k, v, cpos, pos)
+
+        err = _max_err(split(), whole())
+        check(err <= SPLIT_DECODE_TOL[dt],
+              f"split decode {dt}: {err} > {SPLIT_DECODE_TOL[dt]}")
+        name = str(dt).split(".")[-1]
+        out[f"decode_{name}"] = {"max_abs_err": err,
+                                 "split_ms": cuda_ms(split, 5),
+                                 "whole_ms": cuda_ms(whole, 5)}
+        del q, k, v
+        torch.cuda.empty_cache()
+    S, Bq = 4096, 1
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn((Bq, S, Hq, D), generator=g, device=dev).to(dt)
+        k = torch.randn((Bq, S, Hq, D), generator=g, device=dev).to(dt)
+        v = torch.randn((Bq, S, Hq, D), generator=g, device=dev).to(dt)
+        rows = S // parts
+
+        def blocks():
+            return torch.cat([attention_blockwise(q[:, a:a + rows], k, v,
+                                                  _q_offset=a)
+                              for a in range(0, S, rows)], dim=1)
+
+        def whole():
+            return attention(q, k, v)
+
+        err = _max_err(blocks(), whole())
+        check(err <= QUERY_BLOCKS_TOL[dt],
+              f"query blocks {dt}: {err} > {QUERY_BLOCKS_TOL[dt]}")
+        name = str(dt).split(".")[-1]
+        out[f"query_{name}"] = {"max_abs_err": err,
+                                "split_ms": cuda_ms(blocks, 3),
+                                "whole_ms": cuda_ms(whole, 3)}
+        del q, k, v
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("split_attention", **out)
+    return out
+
+
 def _local_tree(tree):
     if isinstance(tree, dict):
         return {k: _local_tree(v) for k, v in tree.items()}
@@ -2268,10 +2358,26 @@ def phase_roofline(dev) -> dict:
 
 # the dry-run cells chip_smoke traces at production size: the dense train
 # and decode steps on the pod, the sharded MoE prefill on two pods (512
-# ranks), and the SSM scan on local batch rows at 500k tokens
+# ranks), the SSM scan on local batch rows at 500k tokens, and attention
+# under sequence parallelism (gemma-2b, recipe "sp")
 DRYRUN_CELLS = (("yi-6b", "train_4k", "pod"), ("yi-6b", "decode_32k", "pod"),
                 ("mixtral-8x7b", "prefill_32k", "multipod"),
-                ("hymba-1.5b", "long_500k", "pod"))
+                ("hymba-1.5b", "long_500k", "pod"),
+                ("gemma-2b", "prefill_32k", "pod"))
+# what the split meshed paths must keep each of these cells under (the
+# parent tree's figures in PERF.md: the decode all-gathered 17.2 GB of
+# cache a step, the MoE ran replicated at a useful share of 0.00178, and
+# sp attention's memory term was 6.92 s)
+DRYRUN_LIMITS = {
+    ("yi-6b", "decode_32k", "pod"):
+        ("collective bytes a step", lambda d: d["coll_bytes"]["total"],
+         "<", 100e6),
+    ("mixtral-8x7b", "prefill_32k", "multipod"):
+        ("useful FLOP share", lambda d: d["terms"]["useful_flops_ratio"],
+         ">=", 10 * 0.00178),
+    ("gemma-2b", "prefill_32k", "pod"):
+        ("memory term, s", lambda d: d["terms"]["memory_s"], "<", 6.92),
+}
 DRYRUN_TAG = "chip_smoke"
 DRYRUN_TIMEOUT_S = 900
 
@@ -2341,6 +2447,11 @@ class DryRun:
                   and all(np.isfinite(v) for v in d["terms"].values()
                           if not isinstance(v, str)),
                   f"dry-run cell {cell}: empty or non-finite terms")
+            if cell in DRYRUN_LIMITS:
+                what, read, op, limit = DRYRUN_LIMITS[cell]
+                got = read(d)
+                check(got < limit if op == "<" else got >= limit,
+                      f"dry-run cell {cell}: {what} {got} not {op} {limit}")
             log("dryrun_cell", arch=cell[0], shape=cell[1], mesh=cell[2],
                 recipe=d["recipe"], terms=d["terms"],
                 flops_per_device=d["flops_per_device"],
@@ -2449,6 +2560,8 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
     # PERF.md §7)
     mesh = phase_mesh_1x1(dev, layers=TRAIN_LAYERS, steps=TRAIN_STEPS)
     phase_mesh_archs(dev)
+    # slice 12: what each rank of the split meshed paths computes
+    phase_split_attention(dev)
     dry.finish()
 
     fp_row = _row("fingerprint",

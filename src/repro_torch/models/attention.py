@@ -6,7 +6,9 @@ port does too: no fused attention operator stands in for them).
 * ``attention_banded`` — sliding-window attention: a loop over query
   blocks, each attending to a fixed-size (window + q_block) KV slice.
 * ``attention_decode`` — single-query attention over a cache (optionally a
-  ring buffer for SWA).
+  ring buffer for SWA). On a mesh whose cache length is sharded, each rank
+  attends its own cache block (``decode_partials``) and the blocks are
+  combined across ranks (``combine_partials``, flash-decoding's combine).
 * ``attention_reference`` — the naive O(S²)-memory oracle the tests hold
   the others against.
 
@@ -17,6 +19,12 @@ values exactly and accumulate in f32, as the JAX code's
 (blockwise) or query block (banded) is recomputed in backward, as the JAX
 code's ``@jax.checkpoint`` scan bodies are, so a layer's backward never
 holds every block's scores.
+
+On DTensors (a mesh) self-attention keeps q's sequence shard: each rank
+computes its own query rows against K and V gathered along the sequence,
+its masks at the rows' global offset (``_on_query_blocks``), as the
+reference's partitioner keeps ``act_q`` sequence-sharded and gathers only
+``act_kv``.
 """
 from __future__ import annotations
 
@@ -25,9 +33,10 @@ from typing import Optional
 import functools
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..sharding.ctx import local_call, settle
+from ..sharding.ctx import local_block, local_call, settle
 from .layers import as_torch_dtype, recomputed, rounded
 
 NEG_INF = -1e30
@@ -67,9 +76,13 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: Optional[int] = None,
                         kv_block: int = 512,
                         scale: Optional[float] = None,
-                        score_dtype=torch.float32) -> torch.Tensor:
-    """q: (B, S, Hq, Dk); k: (B, S, KVH, Dk); v: (B, S, KVH, Dv)."""
-    B, S, Hq, Dk = q.shape
+                        score_dtype=torch.float32,
+                        _q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, Hq, Dk); k: (B, S, KVH, Dk); v: (B, S, KVH, Dv). Sq is S
+    except on a mesh, where q is a rank's block of queries starting at
+    global position ``_q_offset`` (``_on_query_blocks``)."""
+    B, Sq, Hq, Dk = q.shape
+    S = k.shape[1]
     KVH = k.shape[2]
     Dv = v.shape[3]
     score_dtype = as_torch_dtype(score_dtype)
@@ -81,13 +94,13 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qh = _split_heads(_scale(q, scale), KVH)               # (B,KVH,G,S,Dk)
     kh = k.permute(0, 2, 1, 3)                             # (B,KVH,S,Dk)
     vh = v.permute(0, 2, 1, 3)                             # (B,KVH,S,Dv)
-    q_pos = torch.arange(S, device=q.device)
+    q_pos = _q_offset + torch.arange(Sq, device=q.device)
     G = Hq // KVH
 
     def body(m, l, acc, qh, kb, vb, j):
         s = _scores(qh, kb).to(score_dtype)
         kv_pos = j * kv_block + torch.arange(kv_block, device=q.device)
-        mask = torch.ones((S, kv_block), dtype=torch.bool, device=q.device)
+        mask = torch.ones((Sq, kv_block), dtype=torch.bool, device=q.device)
         if causal:
             mask &= q_pos[:, None] >= kv_pos[None, :]
         if window is not None:
@@ -100,10 +113,10 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * alpha[..., None] + _values(p.to(vb.dtype), vb)
         return m_new, l, acc
 
-    m = torch.full((B, KVH, G, S), NEG_INF, dtype=torch.float32,
+    m = torch.full((B, KVH, G, Sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
-    l = torch.zeros((B, KVH, G, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KVH, G, S, Dv), dtype=torch.float32,
+    l = torch.zeros((B, KVH, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KVH, G, Sq, Dv), dtype=torch.float32,
                       device=q.device)
     for j in range(nb):
         blk = slice(j * kv_block, (j + 1) * kv_block)
@@ -117,18 +130,22 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: int, q_block: int = 512,
                      scale: Optional[float] = None,
-                     score_dtype=torch.float32) -> torch.Tensor:
+                     score_dtype=torch.float32,
+                     _q_offset: int = 0) -> torch.Tensor:
     """Sliding-window causal attention, O(S·window): each query block
     attends to the KV slice [start, start + window + q_block), start =
-    max(0, block_end - span), and masking fixes up the overlap."""
-    B, S, Hq, Dk = q.shape
+    max(0, block_end - span), and masking fixes up the overlap. q may be
+    a block of Sq queries at global offset ``_q_offset``, as in
+    ``attention_blockwise``."""
+    B, Sq, Hq, Dk = q.shape
+    S = k.shape[1]
     KVH = k.shape[2]
     Dv = v.shape[3]
     score_dtype = as_torch_dtype(score_dtype)
-    q_block = min(q_block, S)
-    while S % q_block:
+    q_block = min(q_block, Sq)
+    while Sq % q_block:
         q_block //= 2
-    nqb = S // q_block
+    nqb = Sq // q_block
     span = min(S, window + q_block)
 
     qh = _split_heads(_scale(q, scale), KVH)               # (B,KVH,G,S,D)
@@ -151,13 +168,14 @@ def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     outs = []
     for i in range(nqb):
-        q0 = i * q_block
+        rows = slice(i * q_block, (i + 1) * q_block)
+        q0 = _q_offset + rows.start
         start = max(q0 + q_block - span, 0)
         # backward recomputes the banded scores of each query block
-        outs.append(recomputed(body, qh[:, :, :, q0:q0 + q_block],
+        outs.append(recomputed(body, qh[:, :, :, rows],
                                kh[:, :, start:start + span],
                                vh[:, :, start:start + span], q0, start))
-    out = torch.cat(outs, dim=3).reshape(B, KVH, G, S, Dv)
+    out = torch.cat(outs, dim=3).reshape(B, KVH, G, Sq, Dv)
     return _merge_heads(out).to(q.dtype)
 
 
@@ -170,67 +188,205 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, 1, Hq, Dk); caches: (B, C, KVH, D); cache_positions: (C,) the
     absolute position stored in each cache slot (ring-aware); pos: the
     current token's position (its K/V must already be in the cache). On
-    DTensors (a mesh) each rank computes its own batch rows over the
-    whole cache (``_on_local_shards``).
+    DTensors (a mesh) each rank attends its own batch rows over its own
+    block of the cache length and the blocks are combined across the
+    ranks that split the length (``on_cache_blocks``); a cache whose
+    length is not split is attended whole on each rank's batch rows.
     """
     if isinstance(q, DTensor):
-        def local(a, b, c):
-            return attention_decode(a, b, c, cache_positions, pos,
-                                    window=window, scale=scale)
-        return _on_local_shards(local, q, k_cache, v_cache, keep_dims=(0,))
+        if not length_split(k_cache):
+            return on_batch_rows(functools.partial(
+                attention_decode, cache_positions=cache_positions, pos=pos,
+                window=window, scale=scale), q, k_cache, v_cache)
+
+        def partials(qb, kb, vb, cpos):
+            return decode_partials(qb, kb, vb, cpos, pos, window=window,
+                                   scale=scale)
+        return on_cache_blocks(partials, functools.partial(
+            finish_decode, dtype=q.dtype), (q,), (k_cache, v_cache),
+            cache_positions)
     KVH = k_cache.shape[2]
     qh = _split_heads(_scale(q, scale), KVH)               # (B,KVH,G,1,D)
     kh = k_cache.permute(0, 2, 1, 3)                       # (B,KVH,C,D)
     vh = v_cache.permute(0, 2, 1, 3)
     s = _scores(qh, kh)
-    valid = cache_positions <= pos
-    if window is not None:
-        valid &= pos - cache_positions < window
-    s = s.masked_fill(~valid, NEG_INF)
+    s = s.masked_fill(~_valid_slots(cache_positions, pos, window), NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = _values(p.to(vh.dtype), vh)
     return _merge_heads(o).to(q.dtype)
 
 
+def _valid_slots(cache_positions: torch.Tensor, pos: int,
+                 window: Optional[int]) -> torch.Tensor:
+    """The slots that a query at ``pos`` attends: written, and inside the
+    window (global positions)."""
+    valid = cache_positions <= pos
+    if window is not None:
+        valid &= pos - cache_positions < window
+    return valid
+
+
+def block_softmax(s: torch.Tensor, valid: torch.Tensor):
+    """One cache block's softmax statistics: s (..., C) f32 scores, valid
+    (C,) -> (m (...), p (..., C), l (...)): the row max, the unnormalised
+    probabilities exp(s - m) and their sum. A block with no valid slot
+    (or no slot: an uneven split's empty tail) gives m = -1e30, p = 0 and
+    l = 0, so it adds nothing to the combine."""
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1) if s.shape[-1] else s.new_full(s.shape[:-1], NEG_INF)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return m, p, p.sum(dim=-1)
+
+
+def decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, cache_positions: torch.Tensor,
+                    pos: int, *, window: Optional[int] = None,
+                    scale: Optional[float] = None):
+    """One cache block's share of ``attention_decode``: the caches hold
+    the block's C slots, ``cache_positions`` their (C,) global positions.
+    -> (m, l, acc): (B, KVH, G) row max and sum of exponentials and the
+    (B, KVH, G, Dv) unnormalised output, all f32. The G grouped heads are
+    the rows of one product per KV head (no broadcast copy of the block),
+    and p enters the value product in the cache's dtype, as the
+    unsplit path casts its probabilities."""
+    KVH = k_cache.shape[2]
+    qh = _split_heads(_scale(q, scale), KVH)[:, :, :, 0]   # (B,KVH,G,D)
+    kh = k_cache.permute(0, 2, 3, 1)                       # (B,KVH,D,C)
+    vh = v_cache.permute(0, 2, 1, 3)                       # (B,KVH,C,Dv)
+    s = torch.matmul(qh.float(), kh.float())               # (B,KVH,G,C)
+    m, p, l = block_softmax(s, _valid_slots(cache_positions, pos, window))
+    acc = torch.matmul(p.to(vh.dtype).float(), vh.float())
+    return m, l, acc
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                     reduce=None) -> torch.Tensor:
+    """Flash-decoding's combine of per-block partials (``decode_partials``
+    or any block's (m, l, acc) with acc's last dim the output's): the
+    max of the blocks' maxima M, each block's l and acc rescaled by
+    exp(m_i - M), summed, and acc over l. The blocks are stacked on dim 0;
+    or, with ``reduce(t, op)`` ("max" or "sum" across the ranks that each
+    hold one block), m, l and acc are this rank's own."""
+    if reduce is None:
+        def reduce(t, op):
+            return t.amax(dim=0) if op == "max" else t.sum(dim=0)
+    M = reduce(m, "max")
+    w = torch.exp(m - M)
+    L = reduce(l * w, "sum")
+    A = reduce(acc * w[..., None], "sum")
+    return A / torch.clamp(L, min=1e-30)[..., None]
+
+
+def finish_decode(out: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, KVH, G, Dv) combined output -> (B, 1, Hq, Dv) in ``dtype``."""
+    return _merge_heads(out[:, :, :, None]).to(dtype)
+
+
+def length_split(cache: torch.Tensor) -> bool:
+    """A DTensor cache whose length (dim 1) is sharded over the mesh."""
+    return isinstance(cache, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 1 for p in cache.placements)
+
+
+def on_batch_rows(fn, *tensors):
+    """``fn(*tensors)`` on each rank's own batch rows (dim 0), every other
+    dim gathered: decode attention over a cache whose length is whole on
+    every rank."""
+    first = settle(tensors[0])
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in first.placements]
+    run = local_call(fn, first.device_mesh, pl, [pl] * len(tensors))
+    return run(*(settle(t) for t in tensors))
+
+
+def on_cache_blocks(partials, finish, qs, caches,
+                    cache_positions: torch.Tensor):
+    """Split-cache decode on a mesh: ``finish(combine_partials(...))`` of
+    ``partials(*qs, *caches, positions) -> (m, l, acc)``, each rank's
+    taken on its own batch rows (dim 0) and its own block of the cache
+    length (dim 1 of every cache DTensor), at the block's global slot
+    positions (sliced at the offset of the rank's local block, read from
+    the DTensor's own local shape, so an uneven split is right). The
+    combine is reduced across the mesh dims that split the length:
+    all-reduces of the statistics and of the partial outputs, the traffic
+    of the reference's partitioned softmax, where gathering the cache
+    would move all of it. The queries are gathered over every other dim
+    (a few KB a layer)."""
+    cache0 = settle(caches[0])
+    mesh = cache0.device_mesh
+    kv_pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+             for p in cache0.placements]
+    q_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in kv_pl]
+    split = [i for i, p in enumerate(kv_pl)
+             if isinstance(p, Shard) and p.dim == 1]
+    start = local_block(cache0.shape, mesh, kv_pl)[1][1]
+
+    def reduce(t, op):
+        for dim in split:
+            t = funcol.all_reduce(t, op, (mesh, dim))
+        return t
+
+    def body(*args):
+        n = args[len(qs)].shape[1]              # this rank's block length
+        m, l, acc = partials(*args, cache_positions[start:start + n])
+        return finish(combine_partials(m, l, acc, reduce))
+
+    run = local_call(body, mesh, q_pl,
+                     [q_pl] * len(qs) + [kv_pl] * len(caches))
+    return run(*(settle(t) for t in qs), *(settle(t) for t in caches))
+
+
 def attention(q, k, v, *, causal=True, window=None, impl="auto",
               kv_block=512, q_block=512, scale=None,
               score_dtype=torch.float32):
-    """Dispatcher used by model blocks (self-attention, S_q == S_kv). On
-    DTensors (a mesh) it runs on each rank's own batch rows and heads
-    (``_on_local_shards``)."""
-    if isinstance(q, DTensor):
-        return _on_local_shards(functools.partial(
-            attention, causal=causal, window=window, impl=impl,
-            kv_block=kv_block, q_block=q_block, scale=scale,
-            score_dtype=score_dtype), q, k, v, keep_dims=(0, 2))
+    """Dispatcher used by model blocks (self-attention, S_q == S_kv); the
+    implementation is chosen at the global sequence length. On DTensors
+    (a mesh) each rank computes its own query rows
+    (``_on_query_blocks``)."""
     if impl == "auto":
         impl = "banded" if (window is not None and window < q.shape[1]) \
             else "blockwise"
     if impl == "banded":
         if window is None:
             raise ValueError("banded attention needs a window")
-        return attention_banded(q, k, v, window=window, q_block=q_block,
-                                scale=scale, score_dtype=score_dtype)
-    return attention_blockwise(q, k, v, causal=causal, window=window,
-                               kv_block=kv_block, scale=scale,
+        fn = functools.partial(attention_banded, window=window,
+                               q_block=q_block, scale=scale,
                                score_dtype=score_dtype)
+    else:
+        fn = functools.partial(attention_blockwise, causal=causal,
+                               window=window, kv_block=kv_block, scale=scale,
+                               score_dtype=score_dtype)
+    if isinstance(q, DTensor):
+        return _on_query_blocks(fn, q, k, v)
+    return fn(q, k, v)
 
 
-def _on_local_shards(fn, q, k, v, keep_dims):
-    """``fn(q, k, v)`` on each rank's blocks: attention is independent per
-    batch row and head, so each rank computes its own with no collective,
-    and its grads are those blocks' own. q keeps its shards of
-    ``keep_dims`` (batch and heads in self-attention, where k and v come
-    with q's head count; batch alone at decode, against a whole cache) and
-    every other dim is gathered, a sequence-sharded query or cache among
-    them; k and v take q's layout. DTensor's matrix products cannot
-    flatten the (batch, heads) dims when both are sharded (torch 2.11),
-    nor broadcast the grouped products as the plain ones do, which kept a
-    meshed decode from giving one device's bits."""
-    pl = [p if isinstance(p, Shard) and p.dim in keep_dims else Replicate()
-          for p in settle(q).placements]
-    run = local_call(fn, q.device_mesh, pl, [pl] * 3, [pl] * 3)
-    return run(settle(q), settle(k), settle(v))
+def _on_query_blocks(fn, q, k, v):
+    """``fn(q, k, v, _q_offset=...)`` on each rank's blocks. q keeps its
+    shards of batch (0), sequence (1) and heads (2); k and v keep q's
+    batch and head shards and are gathered along the sequence (the
+    reference's ``act_kv``). Each rank computes the attention of its own
+    query rows against the whole K/V, its masks at the rows' global
+    offset (read from q's local shape, so an uneven split is right);
+    attention is independent per batch row, head and query, so no other
+    collective is needed. The grads of q are its blocks' own; those of k
+    and v are partial sums over the mesh dims that shard q's sequence
+    (each rank's queries read every key). DTensor's matrix products
+    cannot flatten the (batch, heads) dims when both are sharded (torch
+    2.11), which is why attention runs on local blocks at all."""
+    q = settle(q)
+    mesh = q.device_mesh
+    q_pl = [p if isinstance(p, Shard) and p.dim in (0, 1, 2) else Replicate()
+            for p in q.placements]
+    kv_pl = [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+             for p in q_pl]
+    kv_grad = [Partial() if isinstance(p, Shard) and p.dim == 1 else r
+               for p, r in zip(q_pl, kv_pl)]
+    offset = local_block(q.shape, mesh, q_pl)[1][1]
+    run = local_call(functools.partial(fn, _q_offset=offset), mesh, q_pl,
+                     [q_pl, kv_pl, kv_pl], [q_pl, kv_grad, kv_grad])
+    return run(q, settle(k), settle(v))
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -20,25 +20,36 @@ caller writes them into its stacked cache.
 
 ``constrain(x, name)`` pins named activations to the recipe's placements
 at each of the reference's sites (a no-op outside a launcher's
-``activation_ctx`` and on plain tensors). Under a rule table with
+``activation_ctx`` and on plain tensors); the decode blocks also pin the
+residual after each add, where DTensor would otherwise scatter it over
+the "model" axis and gather the MLP's weights. Under a rule table with
 "moe_local" the moe block routes each shard's tokens on its own
 (``_moe_local``); otherwise it routes all B*S tokens into one capacity
-buffer, as the reference does.
+buffer, as the reference does, and on a mesh each rank computes one
+block of the expert products (``_moe_global``). On a mesh whose decode
+cache is sharded along its length, each rank writes the new slot into
+its own block and attends its block, and the blocks are combined across
+the ranks (``attention.on_cache_blocks``; the MLA latent through
+``mla_decode_partials``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..sharding.ctx import (constrain, current_mesh, current_rules,
-                            local_call, partial_over, placements)
-from .attention import attention, attention_decode
+                            local_block, local_call, partial_over,
+                            placements, settle)
+from .attention import (NEG_INF, attention, attention_decode, block_softmax,
+                        length_split, on_cache_blocks)
 from .config import ModelConfig
 from .layers import (apply_rope, as_torch_dtype, dense, proj_heads,
                      recomputed, rms_norm, trunc_normal, unproj_heads)
-from .moe import moe_ffn
+from .moe import (dispatch_indices, expert_ffn, moe_capacity, moe_ffn,
+                  route)
 from .ssm import (causal_conv, causal_conv_step, ssd_chunked,
                   ssd_decode_step)
 
@@ -125,16 +136,24 @@ def _kv_cache_insert(cache: Dict, k_t: torch.Tensor, v_t: torch.Tensor,
 
 def _write_slot(buf: torch.Tensor, slot: int, val: torch.Tensor
                 ) -> torch.Tensor:
-    """``buf[:, slot] = val``: in place on a plain tensor. A DTensor cache
-    (a mesh's, its length sharded) gets a new tensor instead, the slot
-    chosen by a mask that each shard applies to its own positions: a write
-    through a view of a DTensor can land in a gathered copy."""
+    """``buf[:, slot] = val``, in place, and ``buf`` returned. A DTensor
+    cache (a mesh's, its length sharded) is written into the local block
+    of the ranks that own the slot, and nowhere else: ``val`` (one slot)
+    is laid out at the cache's shards of every dim but the length, and
+    each owner writes its rows at the slot's local index (the reference's
+    ``dynamic_update_slice`` on a donated buffer)."""
     if not isinstance(buf, DTensor):
         buf[:, slot:slot + 1] = val
         return buf
-    hit = torch.arange(buf.shape[1], device=buf.device) == slot
-    return torch.where(hit.reshape((1, -1) + (1,) * (buf.ndim - 2)), val,
-                       buf)
+    mesh = buf.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+            for p in buf.placements]
+    val = settle(val).redistribute(mesh, rows).to_local()
+    shape, offset = local_block(buf.shape, mesh, buf.placements)
+    i = slot - offset[1]
+    if 0 <= i < shape[1]:
+        buf.to_local()[:, i:i + 1] = val
+    return buf
 
 
 def _attn_decode(cfg: ModelConfig, p: Dict, cache: Dict, x_t: torch.Tensor,
@@ -233,9 +252,9 @@ def decode_dense_block(cfg: ModelConfig, p: Dict, cache: Dict,
                        x_t: torch.Tensor, pos: int):
     h = rms_norm(x_t, p["attn_norm"], cfg.rms_eps)
     cache, a = _attn_decode(cfg, p, cache, h, pos)
-    x_t = x_t + a
+    x_t = constrain(x_t + a, "act_hidden")
     h = rms_norm(x_t, p["mlp_norm"], cfg.rms_eps)
-    x_t = x_t + _mlp(cfg, p, h)
+    x_t = constrain(x_t + _mlp(cfg, p, h), "act_hidden")
     return cache, x_t
 
 
@@ -297,17 +316,74 @@ def _moe_local(cfg: ModelConfig, p: Dict, h: torch.Tensor, spec):
 
 
 def _moe_global(cfg: ModelConfig, p: Dict, h2d: torch.Tensor):
-    """``_moe`` over all tokens at once. DTensor has no sharding strategy
-    for the sort-based dispatch, so on a mesh the tokens and weights are
-    gathered (replicated) and every rank routes the whole set, as the
-    reference's partitioner computes it: same tokens, same capacity."""
+    """``_moe`` over all tokens at once: one capacity buffer for all B*S
+    tokens, the same stable sorts and ``keep`` mask, as the reference.
+    DTensor has no sharding strategy for the sort-based dispatch, so on a
+    mesh the tokens are gathered and every rank routes the whole set. The
+    expert products are then cut into disjoint blocks, one a rank: the
+    expert hidden dim fe at the weights' own placements (the reference's
+    tp layout: w_gate/w_up sharded on fe, w_down on its fe rows), and the
+    capacity rows of every expert over the other mesh dims, which hold
+    the gathered tokens whole. Each rank's block
+    gives a partial sum of the output, returned pending over the whole
+    mesh and reduced once by the caller (``_moe_out``); each token's k
+    contributions are added left to right within a rank. The grads of
+    the weights stay at their fe shards, pending over the row dims; those
+    of the tokens and the gate are pending over every dim."""
     if not isinstance(h2d, DTensor):
         return _moe(cfg, p, h2d)
     mesh = h2d.device_mesh
     rep = [Replicate()] * mesh.ndim
-    fn = local_call(lambda *a: _moe(cfg, dict(zip(_MOE_KEYS, a[1:])), a[0]),
-                    mesh, (rep, rep), [rep] * 5, [rep] * 5)
-    return fn(h2d, *(p[k] for k in _MOE_KEYS))
+    E, top_k = cfg.n_experts, cfg.top_k
+    capacity = moe_capacity(h2d.shape[0], top_k, cfg.capacity_factor, E)
+
+    def routing(x, router):
+        gate, experts, aux = route(x, router, top_k)
+        return (gate, *dispatch_indices(experts, E, capacity), aux)
+
+    x = settle(h2d).redistribute(mesh, rep)       # gathered once
+    gate, slot, keep, token, aux = local_call(
+        routing, mesh, (rep,) * 5, [rep, rep], [rep, rep])(x, p["router"])
+    fe_dims = {i for i, q in enumerate(settle(p["w_gate"]).placements)
+               if isinstance(q, Shard) and q.dim == 2}
+    # this rank's block of every expert's capacity rows: cut over the
+    # dims that do not shard fe, as DTensor would cut a dim sharded there
+    (n,), (start,) = local_block((capacity,), mesh, [
+        Replicate() if i in fe_dims else Shard(0) for i in range(mesh.ndim)])
+    pending = [Partial()] * mesh.ndim
+    w_in = [Shard(2) if i in fe_dims else Replicate()
+            for i in range(mesh.ndim)]
+    w_out = [Shard(1) if i in fe_dims else Replicate()
+             for i in range(mesh.ndim)]
+    g_in = [Shard(2) if i in fe_dims else Partial()
+            for i in range(mesh.ndim)]
+    g_out = [Shard(1) if i in fe_dims else Partial()
+             for i in range(mesh.ndim)]
+
+    def experts(x, gate, slot, keep, token, wg, wu, wd):
+        return expert_ffn(x, gate, slot, keep, token, wg, wu, wd,
+                          capacity=capacity, act=cfg.act,
+                          rows=(start, start + n))
+
+    y = local_call(experts, mesh, pending, [rep] * 5 + [w_in, w_in, w_out],
+                   [pending, pending] + [rep] * 3 + [g_in, g_in, g_out])(
+        x, gate, slot, keep, token, p["w_gate"], p["w_up"], p["w_down"])
+    return y, aux
+
+
+def _moe_out(y: torch.Tensor) -> torch.Tensor:
+    """The MoE output's pending sum reduced once, straight to the rule
+    table's "act_moe_out" where it has one, else to "act_hidden": a
+    reduce-scatter over the dims those shard, an all-reduce over the
+    others (``constrain`` would all-reduce it whole first)."""
+    rules = current_rules()
+    spec = rules.get("act_moe_out")
+    if spec is None:
+        spec = rules.get("act_hidden")
+    if spec is None or not isinstance(y, DTensor):
+        return y
+    return y.redistribute(y.device_mesh,
+                          placements(y.device_mesh, spec, y.ndim))
 
 
 def apply_moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -328,8 +404,7 @@ def apply_moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         # dims inside the sort-based dispatch
         h = constrain(h, "act_moe_in")
         y, aux = _moe_global(cfg, p, h.reshape(B * S, d))
-        x = constrain(x + constrain(y.reshape(B, S, d), "act_moe_out"),
-                      "act_hidden")
+        x = constrain(x + _moe_out(y.reshape(B, S, d)), "act_hidden")
     cache = None
     if collect_cache:
         C = cfg.cache_len(S)
@@ -341,10 +416,10 @@ def decode_moe_block(cfg: ModelConfig, p: Dict, cache: Dict,
                      x_t: torch.Tensor, pos: int):
     h = rms_norm(x_t, p["attn_norm"], cfg.rms_eps)
     cache, a = _attn_decode(cfg, p, cache, h, pos)
-    x_t = x_t + a
+    x_t = constrain(x_t + a, "act_hidden")
     h = rms_norm(x_t, p["mlp_norm"], cfg.rms_eps)
     y, _ = _moe_global(cfg, p, h)
-    return cache, x_t + y
+    return cache, x_t + _moe_out(y)
 
 
 # ==================================================================== mla
@@ -430,9 +505,11 @@ def decode_mla_block(cfg: ModelConfig, p: Dict, cache: Dict,
                      x_t: torch.Tensor, pos: int):
     """Absorbed MLA decode: attention runs in latent space, in f32 as in
     the reference; the cache is the (kv_lora_rank + rope) latent, updated
-    in place."""
+    in place. A mesh's length-sharded latent is attended block by block
+    on each rank and combined across them (``mla_decode_partials``)."""
     B, d = x_t.shape
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    scale = (nope + rope) ** -0.5
     h = rms_norm(x_t, p["attn_norm"], cfg.rms_eps)[:, None]     # (B,1,d)
     pos_b = torch.full((B, 1), pos, device=x_t.device)
     q, c_kv, k_rope = _mla_qkv(cfg, p, h, pos_b)
@@ -443,25 +520,52 @@ def decode_mla_block(cfg: ModelConfig, p: Dict, cache: Dict,
                                "cache_latent"),
              "k_rope": constrain(_write_slot(cache["k_rope"], slot, k_rope),
                                  "cache_latent")}
-    c_cache = cache["c_kv"].float()
-    r_cache = cache["k_rope"].float()
     # absorb W_UK into q:   q_abs = q_nope @ W_UK^T  -> latent space
     w_uk = p["wkv_b"][..., :nope].float()                       # (kr,H,nope)
     w_uv = p["wkv_b"][..., nope:].float()                       # (kr,H,vh)
     q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk)
-    s = torch.einsum("bqhr,bcr->bhqc", q_abs, c_cache) + \
-        torch.einsum("bqhr,bcr->bhqc", q_rope.float(), r_cache)
-    s = s * (nope + rope) ** -0.5
     cpos = _cache_positions(C, pos, x_t.device)
-    s = s.masked_fill(~(cpos <= pos), -1e30)
-    pw = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhqc,bcr->bqhr", pw, c_cache)
+    if length_split(cache["c_kv"]):
+        o_lat = on_cache_blocks(
+            functools.partial(mla_decode_partials, pos=pos, scale=scale),
+            _latent_rows, (q_abs, q_rope), (cache["c_kv"], cache["k_rope"]),
+            cpos)
+    else:
+        c_cache = cache["c_kv"].float()
+        r_cache = cache["k_rope"].float()
+        s = torch.einsum("bqhr,bcr->bhqc", q_abs, c_cache) + \
+            torch.einsum("bqhr,bcr->bhqc", q_rope.float(), r_cache)
+        s = s * scale
+        s = s.masked_fill(~(cpos <= pos), NEG_INF)
+        pw = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhqc,bcr->bqhr", pw, c_cache)
     o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
     y = unproj_heads(o.to(x_t.dtype), p["wo"])[:, 0]
-    x_t = x_t + y
+    x_t = constrain(x_t + y, "act_hidden")
     h2 = rms_norm(x_t, p["mlp_norm"], cfg.rms_eps)
-    x_t = x_t + _mlp(cfg, p, h2)
+    x_t = constrain(x_t + _mlp(cfg, p, h2), "act_hidden")
     return cache, x_t
+
+
+def mla_decode_partials(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                        c_kv: torch.Tensor, k_rope: torch.Tensor,
+                        cache_positions: torch.Tensor, *, pos: int,
+                        scale: float):
+    """One latent-cache block's share of the absorbed MLA attention:
+    q_abs (B,1,H,kr) f32, q_rope (B,1,H,rope), the block's c_kv (B,C,kr)
+    and k_rope (B,C,rope) at (C,) global positions -> (m, l, acc) for
+    ``attention.combine_partials``: (B,H,1) and the (B,H,1,kr)
+    unnormalised latent output, f32."""
+    c = c_kv.float()
+    s = torch.einsum("bqhr,bcr->bhqc", q_abs, c) + \
+        torch.einsum("bqhr,bcr->bhqc", q_rope.float(), k_rope.float())
+    m, p, l = block_softmax(s * scale, cache_positions <= pos)
+    return m, l, torch.einsum("bhqc,bcr->bhqr", p, c)
+
+
+def _latent_rows(out: torch.Tensor) -> torch.Tensor:
+    """(B,H,1,kr) combined latent output -> (B,1,H,kr)."""
+    return out.permute(0, 2, 1, 3)
 
 
 # ==================================================================== ssm
@@ -681,9 +785,9 @@ def decode_hybrid_block(cfg: ModelConfig, p: Dict, cache: Dict,
     ssm_cache, ssm_out = decode_ssm_core(cfg, p["ssm"], ssm_cache, h)
     fused = 0.5 * (rms_norm(attn_out, p["attn_fuse_norm"], cfg.rms_eps) +
                    rms_norm(ssm_out, p["ssm_fuse_norm"], cfg.rms_eps))
-    x_t = x_t + fused
+    x_t = constrain(x_t + fused, "act_hidden")
     h2 = rms_norm(x_t, p["mlp_norm"], cfg.rms_eps)
-    x_t = x_t + _mlp(cfg, p, h2)
+    x_t = constrain(x_t + _mlp(cfg, p, h2), "act_hidden")
     return {**kv_cache, **ssm_cache}, x_t
 
 

@@ -259,14 +259,12 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 tokens: torch.Tensor, pos: int
                 ) -> Tuple[Dict, torch.Tensor]:
     """One decode step. tokens: (B,) int; pos: the position being generated,
-    whose K/V enter the cache. The stacked cache is updated in place: K/V
-    slots by the blocks, SSM states copied in from what the block returns
-    (DTensor caches, on a mesh, are rebuilt instead and the new dict
-    returned). Returns (cache, logits (B, padded vocab))."""
+    whose K/V enter the cache. The stacked cache is updated in place and
+    returned, on one device as on a mesh (DTensor caches: each rank writes
+    its own block): K/V slots by the blocks, SSM states copied in from what
+    the block returns. Returns (cache, logits (B, padded vocab))."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens)
-    sharded = any(isinstance(v, DTensor) for v in cache.values())
-    layers = []
     for i, p in enumerate(_unstack(params["blocks"])):
         layer_cache = {k: v[i] for k, v in cache.items()}
         new, x = FAMILY_DECODE[cfg.family](cfg, p, layer_cache, x, pos)
@@ -274,16 +272,18 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         # scan carry has (left free, DTensor's strategies drift it to an
         # uneven split of the heads that it cannot flatten)
         x = constrain(x, "act_hidden")
-        if sharded:         # DTensor caches come back as new tensors
-            layers.append(new)
-            continue
         for k, t in new.items():
             if t is not layer_cache[k]:
-                cache[k][i].copy_(t)
-    if sharded:
-        cache = {k: torch.stack([c[k] for c in layers]) for k in cache}
+                _copy_into(layer_cache[k], t)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = dense(x, lm_head_weight(cfg, params)) \
         .to(as_torch_dtype(cfg.logit_dtype))
     return cache, logits
 
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` is laid out at ``dst``'s
+    placements first, so each rank copies its own block."""
+    if isinstance(src, DTensor):
+        src = settle(src).redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)

@@ -15,7 +15,11 @@ Under a mesh the block calls ``moe_ffn`` on each rank's own tokens
 (``blocks._moe_local``, the reference's ``shard_map`` over the token axes)
 and, where expert weights shard their hidden dim over a mesh dimension,
 ``psum_axis`` names it: w_down's partial outputs are summed over that
-dimension's process group, the dense TP FFN's collective.
+dimension's process group, the dense TP FFN's collective. Routing all
+tokens at once on a mesh (``blocks._moe_global``) runs ``route`` and
+``dispatch_indices`` on every rank and ``expert_ffn`` on each rank's
+block of the expert products (its slice of the expert hidden dim, its
+block of the capacity rows).
 """
 from __future__ import annotations
 
@@ -79,6 +83,12 @@ def _act(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
     return torch.nn.functional.gelu(g, approximate="tanh") * u
 
 
+def moe_capacity(T: int, top_k: int, capacity_factor: float,
+                 n_experts: int) -> int:
+    """Slots an expert, in the reference's Python arithmetic."""
+    return max(1, int(T * top_k * capacity_factor / n_experts))
+
+
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
             capacity_factor: float = 1.25, act: str = "swiglu",
@@ -92,30 +102,56 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     mesh dimension (differentiably: the sum's backward sums the grads)."""
     T, d = x.shape
     E = w_router.shape[-1]
-    capacity = max(1, int(T * top_k * capacity_factor / E))
-
+    capacity = moe_capacity(T, top_k, capacity_factor, E)
     gate, experts, aux = route(x, w_router, top_k)
     slot, keep, token = dispatch_indices(experts, E, capacity)
+    return expert_ffn(x, gate, slot, keep, token, w_gate, w_up, w_down,
+                      capacity=capacity, act=act, psum_axis=psum_axis), aux
 
+
+def expert_ffn(x: torch.Tensor, gate: torch.Tensor, slot: torch.Tensor,
+               keep: torch.Tensor, token: torch.Tensor, w_gate: torch.Tensor,
+               w_up: torch.Tensor, w_down: torch.Tensor, *, capacity: int,
+               act: str = "swiglu", psum_axis: Optional[str] = None,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The experts' half of ``moe_ffn``, from ``route`` and
+    ``dispatch_indices``' results: fill the (E, capacity, d) buffer, the
+    expert products, and the gather-back weighted by ``gate``.
+
+    On a mesh a rank may compute a block of these products: ``rows``
+    (start, stop) takes only those capacity rows of every expert (the
+    other slots' entries contribute nothing here), and a slice of the
+    expert hidden dim (w_gate/w_up's columns, w_down's rows) gives that
+    slice's share. The result is then this block's partial sum of the
+    output, which the caller reduces."""
+    T, d = x.shape
+    E = w_gate.shape[0]
+    top_k = gate.shape[-1]
+    if rows is None:
+        n, mine, local = capacity, keep, slot
+    else:
+        n = rows[1] - rows[0]
+        at = torch.remainder(slot, capacity) - rows[0]
+        mine = keep & (at >= 0) & (at < n)
+        local = torch.div(slot, capacity, rounding_mode="floor") * n + at
     # fill the capacity buffer; dropped entries go to a spare last row that
     # is cut off, so they write nothing (kept slots are unique)
-    dest = torch.where(keep, slot, E * capacity)
-    buf = x.new_zeros((E * capacity + 1, d)).index_put((dest,), x[token])
-    buf = buf[:-1].reshape(E, capacity, d)
+    dest = torch.where(mine, local, E * n)
+    buf = x.new_zeros((E * n + 1, d)).index_put((dest,), x[token])
+    buf = buf[:-1].reshape(E, n, d)
 
     g = torch.bmm(buf, w_gate.to(x.dtype))
     u = torch.bmm(buf, w_up.to(x.dtype))
     y = torch.bmm(_act(g, u, act), w_down.to(x.dtype))
     if psum_axis is not None:
         y = psum(y, psum_axis)
-    y = y.reshape(E * capacity, d)
-
-    # gather back with routing weights
-    safe_slot = torch.where(keep, slot, E * capacity - 1)
-    picked = torch.where(keep[:, None], y[safe_slot], 0)
-    weighted = picked * torch.where(keep, gate.reshape(-1), 0)[:, None] \
+    # gather back with routing weights; entries that are not this block's
+    # read a zero row (a rank may hold no rows at all)
+    y = torch.cat([y.reshape(E * n, d), y.new_zeros((1, d))])
+    picked = y[dest]
+    weighted = picked * torch.where(mine, gate.reshape(-1), 0)[:, None] \
         .to(x.dtype)
-    return sum_contributions(weighted.reshape(T, top_k, d)), aux
+    return sum_contributions(weighted.reshape(T, top_k, d))
 
 
 def psum(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:

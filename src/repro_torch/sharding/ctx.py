@@ -226,6 +226,26 @@ def settle(x: torch.Tensor) -> torch.Tensor:
         Replicate() if p.is_partial() else p for p in x.placements])
 
 
+def local_block(shape, mesh, placements_) -> Tuple[Tuple[int, ...],
+                                                    Tuple[int, ...]]:
+    """(local shape, global offset) of this rank's block of a tensor of
+    global ``shape`` at ``placements_``, cut as DTensor cuts it: each
+    ``Shard(d)``, in mesh-dim order, splits dim d into chunks of
+    ceil(n / k) with the tail chunks short or empty (``torch.chunk``), so
+    uneven splits are right. Reads only the mesh coordinate, never tensor
+    values, so it runs on fake tensors too."""
+    size, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements_):
+        if isinstance(p, Shard):
+            n, k = size[p.dim], mesh.size(i)
+            chunk = -(-n // k)
+            start = min(chunk * coord[i], n)
+            size[p.dim] = min(n, start + chunk) - start
+            offset[p.dim] += start
+    return tuple(size), tuple(offset)
+
+
 def partial_over(mesh, spec: PartitionSpec, ndim: int):
     """Placements of a replicated operand whose local gradients, taken on
     the shards of a tensor laid out by ``spec``, must be summed over the

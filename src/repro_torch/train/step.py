@@ -12,7 +12,8 @@ tensors), as the reference's does for its dry-run.
 * microbatch gradient accumulation in f32, by the reference's auto rule
   (about 2 samples a device a microbatch, with the DP size of the batch
   spec); microbatch i is rows [i*B/n, (i+1)*B/n) of the GLOBAL batch, as
-  the reference's reshape makes it;
+  the reference's reshape makes it (on a mesh the batch is laid out so
+  once a step, ``_microbatches``);
 * the remat policy from ``ModelConfig`` (``models.model._remat``);
 * ZeRO-1 (``tcfg.zero1``): master, m and v sharded over the axes the params
   are replicated on (``optim.adamw`` reduces the grads to them);
@@ -32,7 +33,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..data.pipeline import make_global_batch
 from ..device import resolve_device
@@ -127,18 +128,25 @@ def _abstract_opt_state(pshape):
             "master": f32, "m": f32, "v": f32}
 
 
-def _microbatch(batch: Dict[str, torch.Tensor], i: int, nmicro: int):
-    """Rows [i*B/n, (i+1)*B/n) of the global batch. A DTensor batch is
-    gathered, cut, and each rank keeps its block of the cut at the
-    batch's placements."""
+def _microbatches(batch: Dict[str, torch.Tensor], nmicro: int):
+    """The batch laid out once as (nmicro, B/nmicro, ...), as the
+    reference's reshape makes it: microbatch i is rows [i*B/n, (i+1)*B/n)
+    of the GLOBAL batch. A DTensor batch is gathered once a step and cut
+    again with its batch shards moved to dim 1, so that each
+    microbatch's rows stay on the data axes and indexing one (``[i]``)
+    moves nothing. (DTensor cannot split a sharded dim into (n, B/n) when
+    the mesh does not divide n, as 8 microbatches over 16 data ranks.)"""
     out = {}
     for k, v in batch.items():
-        full = v.full_tensor() if isinstance(v, DTensor) else v
-        mb = full.reshape((nmicro, full.shape[0] // nmicro)
-                          + tuple(full.shape[1:]))[i]
-        out[k] = distribute_tensor(mb, v.device_mesh, v.placements,
-                                   src_data_rank=None) \
-            if isinstance(v, DTensor) else mb
+        shape = (nmicro, v.shape[0] // nmicro) + tuple(v.shape[1:])
+        if not isinstance(v, DTensor):
+            out[k] = v.reshape(shape)
+            continue
+        mesh = v.device_mesh
+        whole = v.redistribute(mesh, [Replicate()] * mesh.ndim)
+        out[k] = whole.reshape(shape).redistribute(mesh, [
+            Shard(p.dim + 1) if isinstance(p, Shard) else p
+            for p in v.placements])
     return out
 
 
@@ -200,9 +208,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, global_batch: int,
         if nmicro == 1:
             return value_and_grad(cfg, params, batch)
         grads = None
+        mbs = _microbatches(batch, nmicro)
         for i in range(nmicro):
             loss, metrics, g = value_and_grad(
-                cfg, params, _microbatch(batch, i, nmicro))
+                cfg, params, {k: v[i] for k, v in mbs.items()})
             if grads is None:
                 grads = [_f32_zeros(x) for x in g]
             for acc, x in zip(grads, g):
