@@ -106,6 +106,15 @@ decode of one yi-6b layer's full cache over 16 length blocks, merged by
 flash-decoding's combine, and the query-offset attention over 16 query
 blocks, each against the unsplit function, bf16 and f32.
 
+``dlc_baseline`` (after ``split_attention``, ~16 s) builds ``FROM yi-6b;
+COPY params; CMD serve`` from yi-6b's full-width weights cut to
+``DLC_LAYERS`` in two stores, ``LayerStore(record_fingerprints=False)``
+(the seed's Docker-faithful COPY cache check) and the default, rebuilds
+it unchanged and injects one edited leaf: the flag-off rebuild must hash
+the whole layer with no fingerprint launch, the default one hash nothing
+with one launch, both stores' checksums must be equal, and the two
+incremental saves must write the same chunks.
+
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -2211,6 +2220,123 @@ def phase_split_attention(dev) -> dict:
     return out
 
 
+DLC_LAYERS = 2     # yi-6b at full width cut to 2 layers: 1.74 GB of bf16
+DLC_CHUNK = 1 << 20
+
+
+def phase_dlc_baseline(dev) -> dict:
+    """The paper's baseline beside the fingerprint prefilter (DLC rule 3,
+    the COPY cache check), on two stores: ``LayerStore(
+    record_fingerprints=False)``, the seed's Docker-faithful rule (a COPY
+    cache check re-chunks and re-hashes the whole payload), and the
+    default (the check is one fingerprint launch against the records'
+    sidecars). Each builds ``FROM yi-6b; COPY params; CMD serve`` from
+    yi-6b's full-width weights (depth cut to ``DLC_LAYERS``), rebuilds it
+    with the payload unchanged, then saves incrementally after one leaf
+    changes (the fingerprint diff against the tables a manager keeps, then
+    ``inject_image_multi``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Instruction, LayerStore, diff_image,
+                                  fingerprint_tree_packed, inject_image_multi)
+    from repro_torch.kernels.fingerprint.ops import fingerprint_leaves
+    from repro_torch.models import init_params
+    cfg = get_config("yi-6b").replace(n_layers=DLC_LAYERS)
+    t_phase = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    edited, _ = _edit_leaf(params, "blocks/wk", 1)
+    flat, flat2 = _flat(params), _flat(edited)
+    payload_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+    ins = [Instruction("FROM", cfg.name, "config"),
+           Instruction("COPY", "params", "content"),
+           Instruction("CMD", "serve", "config")]
+    res, layers = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dlc_")
+    try:
+        for name, flag in (("docker", False), ("fingerprints", True)):
+            store = LayerStore(os.path.join(tmp, name), chunk_bytes=DLC_CHUNK,
+                               record_fingerprints=flag)
+            out = {}
+            for tag, parent in (("v1", None), ("v2", ("app", "v1"))):
+                _sync(dev)
+                fingerprint_leaves.launches = 0
+                t0 = time.perf_counter()
+                _, _, rep = store.build_image(
+                    "app", tag, ins, {"params": lambda: flat}, parent=parent,
+                    arch=cfg.name)
+                _sync(dev)
+                out[tag] = {"seconds": time.perf_counter() - t0,
+                            "fp_launches": fingerprint_leaves.launches,
+                            **{k: getattr(rep, k) for k in (
+                                "layers_built", "layers_cached",
+                                "bytes_hashed", "chunks_prefiltered",
+                                "chunks_written")}}
+            # the tables a manager with use_fingerprints keeps (_last_fps)
+            old_fps = fingerprint_tree_packed(flat, DLC_CHUNK)
+            fingerprint_leaves.launches = 0
+            t0 = time.perf_counter()
+            new_fps = fingerprint_tree_packed(flat2, DLC_CHUNK)
+            manifest, _ = store.read_image("app", "v2")
+            diffs = diff_image([store.read_layer(lid)
+                                for lid in manifest.layer_ids],
+                               {"params": flat2}, old_fps, new_fps)
+            _, _, rep = inject_image_multi(store, "app", "v2", "v3", diffs,
+                                           {"params": lambda: flat2})
+            out["v3"] = {"seconds": time.perf_counter() - t0,
+                         "fp_launches": fingerprint_leaves.launches,
+                         "chunks_written": rep.chunks_written,
+                         "bytes_hashed": rep.bytes_hashed,
+                         "layers_injected": rep.layers_injected}
+            layers[name] = {tag: [store.read_layer(lid, use_cache=False)
+                                  for lid in store.read_image(
+                                      "app", tag)[0].layer_ids]
+                            for tag in ("v1", "v2", "v3")}
+            res[name] = out
+            log("dlc_baseline", store=name, record_fingerprints=flag,
+                payload_bytes=payload_bytes, **out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    off, on = res["docker"], res["fingerprints"]
+    total_chunks = sum(len(r.chunks) for r in layers["docker"]["v1"][1].records)
+    check(off["v2"]["layers_cached"] == on["v2"]["layers_cached"] == 3,
+          "the unchanged rebuild missed the cache")
+    check(off["v2"]["bytes_hashed"] == payload_bytes and
+          off["v2"]["fp_launches"] == 0 and
+          off["v2"]["chunks_prefiltered"] == 0,
+          "the Docker-faithful cache hit did not hash the whole layer alone")
+    check(on["v2"]["bytes_hashed"] == 0 and on["v2"]["fp_launches"] == 1 and
+          on["v2"]["chunks_prefiltered"] == total_chunks,
+          "the fingerprinted cache hit hashed bytes or missed its launch")
+    check(off["v1"]["fp_launches"] == 0 and on["v1"]["fp_launches"] == 1,
+          "the builds' fingerprint launches are not 0 and 1")
+    for tag in ("v1", "v2", "v3"):
+        check([(la.checksum, la.chain) for la in layers["docker"][tag]] ==
+              [(la.checksum, la.chain) for la in layers["fingerprints"][tag]],
+              f"{tag}: the two stores' checksums differ")
+    check(all(r.fp is None for tag in ("v1", "v2", "v3")
+              for la in layers["docker"][tag] for r in la.records),
+          "a record of the Docker-faithful store carries a sidecar")
+    v2_chunks = {h for r in layers["docker"]["v2"][1].records
+                 for h in r.chunks}
+    changed = {h for r in layers["docker"]["v3"][1].records
+               for h in r.chunks} - v2_chunks
+    written = {name: {h for r in layers[name]["v3"][1].records
+                      for h in r.chunks} - v2_chunks for name in layers}
+    check(written["fingerprints"] == written["docker"] == changed and
+          off["v3"]["chunks_written"] == on["v3"]["chunks_written"] ==
+          len(changed) > 0 and
+          off["v3"]["fp_launches"] == on["v3"]["fp_launches"] == 1,
+          "the incremental saves wrote different chunks")
+    out = {"payload_bytes": payload_bytes, "chunks": total_chunks,
+           "changed_chunks": len(changed), "docker": off, "fingerprints": on,
+           "seconds": time.perf_counter() - t_phase}
+    log("dlc_baseline_done", payload_bytes=payload_bytes, chunks=total_chunks,
+        changed_chunks=len(changed), seconds=out["seconds"],
+        card=subprocess.run(CARD_SHELL, capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+        if dev.type == "cuda" else None)
+    return out
+
+
 def _local_tree(tree):
     if isinstance(tree, dict):
         return {k: _local_tree(v) for k, v in tree.items()}
@@ -2562,6 +2688,10 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
     phase_mesh_archs(dev)
     # slice 12: what each rank of the split meshed paths computes
     phase_split_attention(dev)
+    # slice 13: the seed's Docker-faithful COPY cache check beside the
+    # fingerprint prefilter
+    phase_dlc_baseline(dev)
+    torch.cuda.empty_cache()
     dry.finish()
 
     fp_row = _row("fingerprint",

@@ -227,19 +227,21 @@ class LayerStore:
       caller needs every write durable BEFORE a commit point exists —
       e.g. writing blobs it never intends to commit under a manifest.
 
-    Every TensorRecord it builds carries the per-chunk fingerprint sidecar
-    (excluded from content checksums) that the COPY-cache prefilter of
-    ``build_image`` reads; records without one (from a store written with
-    the JAX package's ``record_fingerprints=False``) are still read.
+    ``record_fingerprints`` — store a per-chunk fingerprint sidecar on each
+    TensorRecord at build time (excluded from content checksums), enabling
+    the COPY-cache prefilter in ``build_image``. ``False`` keeps the seed's
+    Docker-faithful DLC rule 3: no fingerprint pass at build time, and a
+    COPY cache check re-chunks and re-hashes the whole payload.
     """
 
     def __init__(self, root: str, chunk_bytes: int = DEFAULT_CHUNK_BYTES,
-                 durability: str = "batch"):
+                 durability: str = "batch", record_fingerprints: bool = True):
         if durability not in ("full", "batch"):
             raise ValueError(f"unknown durability mode {durability!r}")
         self.root = root
         self.chunk_bytes = chunk_bytes
         self.durability = durability
+        self.record_fingerprints = record_fingerprints
         self.fsyncs = 0              # lifetime fsync count (files + dirs)
         self.commits = 0             # lifetime write_image commit count
         self._dirty_dirs: set = set()
@@ -803,13 +805,15 @@ class LayerStore:
                             report: BuildReport,
                             family: Optional[str] = None,
                             version: int = 1) -> LayerDescriptor:
-        """Full (baseline) layer build: serialize + hash EVERY byte. The
-        fingerprint sidecars of the whole layer come from one
-        ``fingerprint_tree_packed`` call, on the device holding the leaves
-        (one kernel launch per content layer on the card)."""
+        """Full (baseline) layer build: serialize + hash EVERY byte. With
+        ``record_fingerprints`` the sidecars of the whole layer come from
+        one ``fingerprint_tree_packed`` call, on the device holding the
+        leaves (one kernel launch per content layer on the card); without
+        it no fingerprint pass runs and every record has ``fp=None``."""
         import dataclasses
 
-        fps = fingerprint_tree_packed(payload, self.chunk_bytes)
+        fps = fingerprint_tree_packed(payload, self.chunk_bytes) \
+            if self.record_fingerprints else None
         records: List[TensorRecord] = []
         for name in sorted(payload.keys()):
             # one D2H copy per tensor
@@ -819,8 +823,9 @@ class LayerStore:
                     report.chunks_written += 1
                 report.bytes_hashed += len(piece)
             report.bytes_serialized += rec.nbytes
-            rec = dataclasses.replace(
-                rec, fp=tuple((int(a), int(b)) for a, b in fps[name].tolist()))
+            if fps is not None:
+                rec = dataclasses.replace(rec, fp=tuple(
+                    (int(a), int(b)) for a, b in fps[name].tolist()))
             records.append(rec)
         checksum = content_checksum(records)
         lid = new_uuid()     # fresh descriptor identity per revision

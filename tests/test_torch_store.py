@@ -582,3 +582,253 @@ def test_build_report_merge_is_the_references():
         reps[name] = dataclasses.asdict(a)
     assert reps["torch"] == reps["jax"]
     assert BuildReport._COUNTERS == JReport._COUNTERS
+
+
+# ---------------------------------------------------------------------------
+# record_fingerprints=False: the seed's Docker-faithful DLC rule 3
+
+_BUILD = ("layers_built", "layers_cached", "bytes_hashed", "bytes_serialized",
+          "chunks_written", "chunks_prefiltered", "derivations_run")
+
+
+def _dockerfile(ins):
+    return [ins("FROM", "base", "config"), ins("COPY", "params", "content"),
+            ins("RUN", "opt_init", "content")]
+
+
+def _seed_payloads(seed, bump=0.0):
+    rng = np.random.default_rng(seed)
+    w0 = rng.standard_normal((64, 64)).astype(np.float32)
+    w0[0, 0] += np.float32(bump)
+    return {"params": {"w0": w0,
+                       "w1": rng.integers(-9, 9, (128, 32)).astype(np.int64)},
+            "opt_init": {"m": rng.standard_normal(700).astype(np.float32)}}
+
+
+def _as_torch(p):
+    return {k: {n: torch.from_numpy(v.copy()) for n, v in d.items()}
+            for k, d in p.items()}
+
+
+def _image_layers(store, tag):
+    manifest, _ = store.read_image("app", tag)
+    return [store.read_layer(lid, use_cache=False)
+            for lid in manifest.layer_ids]
+
+
+@pytest.fixture(scope="module")
+def docker_builds(tmp_path_factory):
+    """v1, an unchanged rebuild v2, and v3 with the COPY layer changed
+    (the RUN below it falls through), built by both packages with
+    ``record_fingerprints=False`` and by the port at the default."""
+    from repro.core import Instruction as JIns
+    from repro.core import LayerStore as JStore
+    import repro_torch.core.store as port_store
+    from repro_torch.core import Instruction, LayerStore
+    tmp = tmp_path_factory.mktemp("docker")
+    p0, p1 = _seed_payloads(3), _seed_payloads(3, bump=1.0)
+    builds = {"jax": (JStore(str(tmp / "jax"), chunk_bytes=512,
+                             record_fingerprints=False), JIns, lambda p: p),
+              "torch": (LayerStore(str(tmp / "torch"), chunk_bytes=512,
+                                   record_fingerprints=False), Instruction,
+                        _as_torch),
+              "torch_fp": (LayerStore(str(tmp / "torch_fp"), chunk_bytes=512),
+                           Instruction, _as_torch)}
+    passes = {}
+    real = port_store.fingerprint_tree_packed
+    out = {}
+    for name, (store, ins, conv) in builds.items():
+        calls = []
+
+        def counted(*args, **kwargs):
+            calls.append(1)
+            return real(*args, **kwargs)
+
+        port_store.fingerprint_tree_packed = counted
+        try:
+            reps = {}
+            parent = None
+            for tag, p in (("v1", p0), ("v2", p0), ("v3", p1)):
+                pay = conv(p)
+                _, _, reps[tag] = store.build_image(
+                    "app", tag, _dockerfile(ins),
+                    {k: (lambda v=v: v) for k, v in pay.items()},
+                    parent=parent)
+                parent = ("app", tag)
+        finally:
+            port_store.fingerprint_tree_packed = real
+        passes[name] = len(calls)
+        out[name] = (store, reps)
+    return out, passes, p0, p1
+
+
+@pytest.mark.parametrize("tag", ["v1", "v2", "v3"])
+def test_docker_faithful_build_reports_match_jax(docker_builds, tag):
+    out, *_ = docker_builds
+    got = {k: getattr(out["torch"][1][tag], k) for k in _BUILD}
+    assert got == {k: getattr(out["jax"][1][tag], k) for k in _BUILD}
+    if tag == "v2":     # every layer cached; the COPY check re-hashed all
+        assert got["layers_cached"] == 3 and got["layers_built"] == 0
+        assert got["bytes_hashed"] == 64 * 64 * 4 + 128 * 32 * 8
+    if tag == "v3":     # COPY missed, the RUN below fell through
+        assert got["layers_cached"] == 1 and got["layers_built"] == 2
+        assert got["derivations_run"] == 1
+    assert got["chunks_prefiltered"] == 0
+
+
+@pytest.mark.parametrize("tag", ["v1", "v2", "v3"])
+def test_docker_faithful_checksums_match_jax_and_records_carry_no_sidecar(
+        docker_builds, tag):
+    out, *_ = docker_builds
+    jl = _image_layers(out["jax"][0], tag)
+    tl = _image_layers(out["torch"][0], tag)
+    assert [(la.checksum, la.chain) for la in tl] == \
+        [(la.checksum, la.chain) for la in jl]
+    assert [[r.to_json() for r in la.records] for la in tl] == \
+        [[r.to_json() for r in la.records] for la in jl]
+    assert all(r.fp is None for la in tl + jl for r in la.records)
+    assert out["torch"][0].verify_image("app", tag, deep=True) == []
+
+
+@pytest.mark.parametrize("tag", ["v1", "v2", "v3"])
+def test_sidecar_switch_leaves_bytes_and_checksums_alone(docker_builds, tag):
+    """The sidecar is outside every checksum: the same payloads give the
+    same blobs, records (but for ``fp``), content and chain checksums with
+    the switch on and off."""
+    out, *_ = docker_builds
+    off = _image_layers(out["torch"][0], tag)
+    on = _image_layers(out["torch_fp"][0], tag)
+    assert [(la.checksum, la.chain) for la in off] == \
+        [(la.checksum, la.chain) for la in on]
+    assert [[dataclasses.replace(r, fp=None) for r in la.records]
+            for la in on] == [la.records for la in off]
+    assert all(r.fp is not None for la in on for r in la.records)
+    assert _blobs(out["torch"][0].root) == _blobs(out["torch_fp"][0].root)
+
+
+def test_docker_faithful_builds_launch_no_fingerprint_pass(docker_builds):
+    """Three builds: the default store fingerprints each content layer it
+    builds (2 + 0 + 2) and the COPY check of v2 and v3 (1 + 1); with the
+    switch off nothing is fingerprinted."""
+    out, passes, *_ = docker_builds
+    assert passes == {"jax": 0, "torch": 0, "torch_fp": 6}
+    assert out["torch_fp"][1]["v2"].bytes_hashed == 0
+    assert out["torch_fp"][1]["v2"].chunks_prefiltered > 0
+
+
+@pytest.mark.parametrize("reader", ["jax", "torch"])
+def test_docker_faithful_images_cross_read(docker_builds, reader):
+    """Each package loads the other's flag-off image bit for bit."""
+    from repro.core import LayerStore as JStore
+    from repro_torch.core import LayerStore
+    out, _, _, p1 = docker_builds
+    writer = "torch" if reader == "jax" else "jax"
+    cls = JStore if reader == "jax" else LayerStore
+    store = cls(out[writer][0].root, chunk_bytes=512,
+                record_fingerprints=False)
+    got = store.load_image_payload("app", "v3")
+    want = {**p1["params"], **p1["opt_init"]}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        v = got[k].numpy() if isinstance(got[k], torch.Tensor) else got[k]
+        _assert_np_equal_bits(v, want[k])
+    assert store.verify_image("app", "v3", deep=True) == []
+
+
+def test_cache_hit_without_fingerprints_rehashes(tmp_path):
+    """The reference's test of the same name, on the port:
+    record_fingerprints=False keeps the seed (Docker-faithful) DLC rule 3,
+    a COPY cache hit costs a full serialize+hash of the payload."""
+    from repro_torch.core import Instruction, LayerStore
+    rng = np.random.default_rng(0)
+    store = LayerStore(str(tmp_path / "store_nofp"), chunk_bytes=1024,
+                       record_fingerprints=False)
+    p = {"params": {"w0": torch.from_numpy(
+                        rng.standard_normal((64, 64)).astype(np.float32)),
+                    "w1": torch.from_numpy(
+                        rng.standard_normal((128, 32)).astype(np.float32))},
+         "opt_init": {"m": torch.zeros((64, 64), dtype=torch.float32)}}
+    ins = [Instruction("FROM", "base", "config"),
+           Instruction("COPY", "params", "content"),
+           Instruction("RUN", "opt_init", "content"),
+           Instruction("CMD", "serve", "config")]
+    providers = {k: (lambda v=v: v) for k, v in p.items()}
+    store.build_image("m", "v1", ins, providers)
+    _, _, rep = store.build_image("m", "v2", ins, providers,
+                                  parent=("m", "v1"))
+    assert rep.layers_cached == 4
+    assert rep.bytes_hashed > 0          # content compare isn't free
+    assert rep.chunks_prefiltered == 0
+
+
+@pytest.fixture(scope="module")
+def docker_saves(tmp_path_factory):
+    """Both managers over a ``record_fingerprints=False`` store: a full
+    save, then an incremental save through ``use_fingerprints`` (the
+    fingerprints live in the manager, not in the records)."""
+    from repro.core import LayerStore as JStore
+    from repro_torch.core import LayerStore
+    tmp = tmp_path_factory.mktemp("docker_saves")
+    p0 = _np_params()
+    p1 = _changed(p0)
+    jm = JaxManager(str(tmp / "jax"), "yi-6b",
+                    JaxPolicy(async_write=False, use_fingerprints=True,
+                              chunk_bytes=CHUNK, keep=10),
+                    store=JStore(str(tmp / "jax"), chunk_bytes=CHUNK,
+                                 record_fingerprints=False))
+    tm = CheckpointManager(str(tmp / "torch"), "yi-6b",
+                           CheckpointPolicy(use_fingerprints=True,
+                                            chunk_bytes=CHUNK,
+                                            async_write=False),
+                           store=LayerStore(str(tmp / "torch"),
+                                            chunk_bytes=CHUNK,
+                                            record_fingerprints=False))
+    reports = []
+    for step, p in ((0, p0), (1, p1)):
+        reports.append((jm.save(step, p, {}),
+                        tm.save(step, params_from_jax(p, "cpu"), {})))
+    return tmp, jm, tm, p1, reports
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_docker_faithful_saves_match_jax(docker_saves, step):
+    tmp, jm, tm, _, reports = docker_saves
+    rj, rt = reports[step]
+    assert _report(rt) == _report(rj)
+    layers = _layers(tm.store, "ckpt", tm.tag_of(step))
+    assert layers == _layers(jm.store, "ckpt", jm.tag_of(step))
+    assert all(r.get("fp") is None for la in layers for r in la["records"])
+    if step == 1:       # injected, not rebuilt: only the changed chunks
+        assert rt.layers_injected == 3 and rt.layers_built == 0
+        assert rt.chunks_written == \
+            _np_params()["blocks"]["wk"][1].nbytes // CHUNK + 1 + 1
+        assert _blobs(str(tmp / "torch")) == _blobs(str(tmp / "jax"))
+
+
+@pytest.mark.parametrize("reader", ["jax", "torch"])
+def test_docker_faithful_checkpoints_cross_restore(docker_saves, reader):
+    from repro.core import LayerStore as JStore
+    from repro_torch.core import LayerStore
+    tmp, _, _, p1, _ = docker_saves
+    if reader == "jax":
+        root = str(tmp / "torch")
+        jm = JaxManager(root, "yi-6b", JaxPolicy(async_write=False),
+                        store=JStore(root, chunk_bytes=CHUNK,
+                                     record_fingerprints=False))
+        params, _, step = jm.restore()
+        got, want = dict(_walk(params)), dict(_walk(p1))
+        for k in want:
+            _assert_np_equal_bits(got[k], want[k])
+    else:
+        root = str(tmp / "jax")
+        tm = CheckpointManager(root, "yi-6b", CheckpointPolicy(),
+                               store=LayerStore(root, chunk_bytes=CHUNK,
+                                                record_fingerprints=False))
+        params, _, step = tm.restore(device="cpu")
+        got = dict(_walk(params))
+        want = dict(_walk(params_from_jax(p1, "cpu")))
+        for k in want:
+            assert got[k].dtype == want[k].dtype and torch.equal(
+                got[k].view(torch.uint8) if got[k].dim() else got[k],
+                want[k].view(torch.uint8) if want[k].dim() else want[k]), k
+    assert step == 1 and sorted(got) == sorted(want)
