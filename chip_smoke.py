@@ -6,13 +6,14 @@
 It builds the port's three CUDA libraries from the sources in the
 checkout (one nvcc each, all at once), logs each library's registers and
 spills as ptxas reports them (and fails if ptxas serialised a kernel's
-wgmma, or if one of the SSD scan's kernels spills), and holds each kernel
-against its plain torch version on edge cases: the fingerprint bit-exactly, flash attention (both its f32 and its
-bf16 tensor-core kernel) and the SSD scan within the JAX kernel tests'
-tolerances. It checks the f32 smoke model of every arch of the registry
-on the card against the CPU, and the MoE dispatch (``moe_dispatch``) at
-full mixtral-8x7b and granite-moe-3b-a800m width, then runs the serving
-half of the main path
+wgmma, or if one of the SSD scan's or the f32 flash kernels spills), and
+holds each kernel against its plain torch version on edge cases: the
+fingerprint bit-exactly, flash attention (its f32 kernel, three TF32
+products a product on ``mma.sync``, and its bf16 ``wgmma`` kernel) and
+the SSD scan within the JAX kernel tests' tolerances. It checks the f32
+smoke model of every arch of the registry on the card against the CPU,
+and the MoE dispatch (``moe_dispatch``) at full mixtral-8x7b and
+granite-moe-3b-a800m width, then runs the serving half of the main path
 
     save (full, fingerprinted) -> CheckpointFollower.poll -> engine + serve
     -> incremental save -> follower.poll_and_refresh(engine) -> serve
@@ -34,7 +35,8 @@ computes and holds them against the model's own results (the served
 models, as in the JAX package, run the plain attention and scan), and
 times each kernel beside its bound, its plain version and, for attention,
 ``scaled_dot_product_attention``; last at yi-6b's attention shape (bf16
-and f32) and mamba2-130m's scan shape. The SSD scan runs as three CUDA
+and f32), hymba-1.5b's in f32, mamba2-130m's scan shape (bf16 and f32)
+and hymba-1.5b's in f32. The SSD scan runs as three CUDA
 kernels a call (chunk state, state passing, chunk scan); its launches
 count calls, and each of the three CUDA kernels is counted as well.
 
@@ -78,7 +80,8 @@ same model trained through the sharded step on a 1x1 NCCL ``DeviceMesh``
 (recipe ``tp``, ZeRO-1), bit-equal to the one-device step, saved
 through the manager (the gathered state; the fingerprint kernel's
 launches are read for the main path), ``reshard_restore``-d onto the
-mesh bit for bit, its prefill step's logits equal to one device's,
+mesh bit for bit, its prefill step's logits (a DTensor at the step's
+``out_shardings``, gathered there) equal to one device's,
 ``compressed_psum`` on the 64000 x 4096 embedding gradient equal to the
 same call on the CPU, and the train launcher with ``--mesh 1x1``; and
 ``mesh_archs``: every arch's f32 smoke model under each recipe through
@@ -145,6 +148,10 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 on the tensor cores
+TF32_TENSOR_OPS_PER_S = 495e12     # dense TF32 on the tensor cores
+# flash attention's f32 kernel takes each product as three TF32 products
+# (3xTF32: hi.hi + hi.lo + lo.hi), its bound as such beside the CUDA cores'
+FLASH_F32_TF32_PRODUCTS = 3
 # integer operations per u32 lane of the fingerprint: 3 multiplies, 1 add,
 # 2 xors and 1 shift in the mix, 1 xor and 1 add into the row's sums
 FP_OPS_PER_LANE = 9
@@ -229,10 +236,20 @@ def phase_build():
     check(len(scan) == 5 and all(
         k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0
         for k in scan), f"the SSD kernels spill (or are missing): {scan}")
+    fa_f32 = [k for k in ptxas["flash_attention"]["kernels"]
+              if "fa_kernel" in k["name"]]
+    check(len(fa_f32) == 3 and all(
+        k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0
+        for k in fa_f32), f"the f32 flash kernels spill (or are missing): "
+        f"{fa_f32}")
     plans = {d: fa_ops.tile_plan(d)["smem_bytes"] for d in fa_ops.HEAD_DIMS}
+    f32_plans = {d: fa_ops.f32_tile_plan(d)["smem_bytes"]
+                 for d in fa_ops.HEAD_DIMS}
     lib = fa_ops.load_library()
     check(all(lib.fa_bf16_smem_bytes(d) == b for d, b in plans.items()),
           "ops.tile_plan disagrees with the kernel's shared memory")
+    check(all(lib.fa_f32_smem_bytes(d) == b for d, b in f32_plans.items()),
+          "ops.f32_tile_plan disagrees with the kernel's shared memory")
     ssd_lib = ssd_ops.load_library()
     ssd_plans = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -252,6 +269,7 @@ def phase_build():
     log("build", seconds=secs, card=torch.cuda.get_device_name(0),
         cuda=torch.version.cuda, torch=torch.__version__,
         built=sorted(paths), ptxas=ptxas, flash_bf16_smem_bytes=plans,
+        flash_f32_smem_bytes=f32_plans,
         ssd_smem_bytes=ssd_plans)
 
 
@@ -591,6 +609,12 @@ SSD_EDGE_CASES = [
 SSD_UNALIGNED_CASES = [
     (2, 256, 4, 64, 2, 16, 128, 1.0),
 ]
+# f32 cases run again with q, k and v each a contiguous view one element
+# into its storage: the f32 kernel then copies K and V in 4-byte pieces
+FA_UNALIGNED_CASES = [
+    (2, 4, 2, 200, 128, 50, True, None),
+    (1, 4, 2, 1300, 64, 1100, True, None),
+]
 FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
@@ -619,21 +643,34 @@ def _ssd_inputs_seeded(g, B, S, H, P, G, N, a_scale, dtype, dev):
 def phase_flash_edges(dev) -> None:
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          reference)
+    t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(21)
-    worst = {}
-    for case in FA_EDGE_CASES:
+    worst, worst_case = {}, {}
+    runs = [(c, dt, False) for c in FA_EDGE_CASES
+            for dt in (torch.float32, torch.bfloat16)] + \
+        [(c, torch.float32, True) for c in FA_UNALIGNED_CASES]
+    for case, dtype, unaligned in runs:
         B, Hq, KVH, S, D, win, causal, scale = case
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = _flash_inputs(g, B, Hq, KVH, S, D, dtype, dev)
-            kw = dict(causal=causal, window=win, scale=scale)
-            got = flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = _max_err(got, reference(q, k, v, **kw))
-            check(err < FA_TOL[dtype], f"flash {case} {dtype}: {err}")
-            name = str(dtype).split(".")[-1]
-            worst[name] = max(worst.get(name, 0.0), err)
+        q, k, v = _flash_inputs(g, B, Hq, KVH, S, D, dtype, dev)
+        if unaligned:
+            q, k, v = (_one_element_in(t) for t in (q, k, v))
+            check(all(t.data_ptr() % 16 for t in (q, k, v)),
+                  "unaligned views")
+        kw = dict(causal=causal, window=win, scale=scale)
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = _max_err(got, reference(q, k, v, **kw))
+        check(err < FA_TOL[dtype],
+              f"flash {case} {dtype} unaligned={unaligned}: {err}")
+        name = str(dtype).split(".")[-1] + ("_unaligned" if unaligned
+                                            else "")
+        if err >= worst.get(name, 0.0):
+            worst[name], worst_case[name] = err, case
     log("kernel_edges_flash", cases=len(FA_EDGE_CASES), dtypes=2,
-        max_abs_err=worst, tol={"float32": 3e-5, "bfloat16": 3e-2})
+        unaligned_f32_cases=len(FA_UNALIGNED_CASES),
+        max_abs_err=worst, worst_case=worst_case,
+        tol={"float32": 3e-5, "bfloat16": 3e-2},
+        seconds=time.perf_counter() - t0)
 
 
 def _one_element_in(t: torch.Tensor) -> torch.Tensor:
@@ -687,14 +724,18 @@ def phase_ssd_edges(dev) -> None:
         max_err=worst, tol={"float32": 2e-5, "bfloat16": 5e-2})
 
 
-def _ops_rate(dtype) -> float:
-    return BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16 \
-        else ALU32_OPS_PER_S
+def _ops_rate(dtype, tf32: bool = False) -> float:
+    """The peak for ``dtype``'s operations: bf16 on the tensor cores; f32
+    on the CUDA cores, or with ``tf32`` (flash attention's f32 kernel
+    only, whose products are 3xTF32) on the tensor cores at TF32."""
+    if dtype == torch.bfloat16:
+        return BF16_TENSOR_OPS_PER_S
+    return TF32_TENSOR_OPS_PER_S if tf32 else ALU32_OPS_PER_S
 
 
-def _bound(nbytes: int, ops: float, dtype) -> dict:
+def _bound(nbytes: int, ops: float, dtype, tf32: bool = False) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / _ops_rate(dtype) * 1e3
+    ops_ms = ops / _ops_rate(dtype, tf32) * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
@@ -703,14 +744,22 @@ def _bound(nbytes: int, ops: float, dtype) -> dict:
 
 def flash_bound(q, k, causal: bool, window) -> dict:
     """Unmasked (query, key) pairs x 4 D operations (2 D for q.k, 2 D for
-    p.v); q, k, v read once and o written once."""
+    p.v); q, k, v read once and o written once. In f32 the operations are
+    the kernel's three TF32 products each, over the TF32 tensor rate
+    (``alu_bound_ms``: the flops alone over the CUDA cores' f32 rate)."""
     B, Hq, S, D = q.shape
     pos = np.arange(S)
     lo = np.maximum(pos - window + 1, 0) if window else np.zeros(S, int)
     hi = pos + 1 if causal else np.full(S, S)
     pairs = B * Hq * int((hi - lo).sum())
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return _bound(nbytes, 4.0 * D * pairs, q.dtype)
+    flops = 4.0 * D * pairs
+    if q.dtype == torch.bfloat16:
+        return _bound(nbytes, flops, q.dtype)
+    res = _bound(nbytes, FLASH_F32_TF32_PRODUCTS * flops, q.dtype, tf32=True)
+    res.update(flops=flops, alu_bound_ms=max(
+        nbytes / HBM_BYTES_PER_S, flops / ALU32_OPS_PER_S) * 1e3)
+    return res
 
 
 def ssd_bound(x, Bc, chunk: int) -> dict:
@@ -784,8 +833,14 @@ def time_ssd(x, dt, A, Bc, Cc, D, *, chunk: int, reps: int = 20) -> dict:
            "plan": tile_plan(B, S, H, P, Bc.shape[2], Bc.shape[3], x.dtype,
                              chunk),
            "max_abs_err": max(_max_err(y, y_p), _max_err(h, h_p))}
-    check(res["max_abs_err"] < SSD_TOL[x.dtype],
-          f"ssd at {res['shape']}: {res['max_abs_err']}")
+    # bf16: absolute, as on hymba's layer; f32: relative to each output's
+    # scale (at least 1), as phase_ssd_edges holds it, since at full width
+    # the f32 outputs reach magnitudes where rounding is what differs
+    res["max_rel_err"] = max(_max_err(a, b) / max(1.0, float(
+        b.float().abs().max())) for a, b in ((y, y_p), (h, h_p)))
+    err = res["max_abs_err"] if x.dtype == torch.bfloat16 \
+        else res["max_rel_err"]
+    check(err < SSD_TOL[x.dtype], f"ssd at {res['shape']} {x.dtype}: {err}")
     call = lambda: ssd(x, dt, A, Bc, Cc, D, chunk=chunk)  # noqa: E731
     res["ms"] = cuda_ms(call, reps)
     res["graph_ms"] = graph_ms(call, reps)
@@ -800,25 +855,44 @@ def time_ssd(x, dt, A, Bc, Cc, D, *, chunk: int, reps: int = 20) -> dict:
 
 def phase_seeded_shapes(dev) -> dict:
     """The kernels at the widths of the repo's other models: yi-6b's
-    attention (causal, no window) in bf16 and in f32 (the f32 kernel, SDPA
-    in f32 beside it; TF32 is off), and mamba2-130m's scan (N 128)."""
+    attention (causal, no window) in bf16 and in f32 (the 3xTF32 kernel,
+    SDPA in f32 beside it; TF32 is off), the f32 kernel again at
+    hymba-1.5b's (window 2048), and the SSD scan at mamba2-130m's shape (N
+    128) in bf16, and in f32 there and at hymba-1.5b's (N 16)."""
+    t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(5)
     flash = {}
-    for dtype, reps in ((torch.bfloat16, 20), (torch.float32, 5)):
-        q, k, v = _flash_inputs(g, 1, 32, 4, 4096, 128, dtype, dev)
-        flash[dtype] = time_flash(q, k, v, causal=True, window=None,
-                                  reps=reps)
-        flash[dtype]["model"] = "yi-6b"
+    for name, dtype, (B, Hq, KVH, S, D, win), reps in (
+            ("yi-6b", torch.bfloat16, (1, 32, 4, 4096, 128, None), 20),
+            ("yi-6b", torch.float32, (1, 32, 4, 4096, 128, None), 10),
+            ("hymba-1.5b", torch.float32, (2, 25, 5, 4096, 64, 2048), 10)):
+        q, k, v = _flash_inputs(g, B, Hq, KVH, S, D, dtype, dev)
+        flash[name, dtype] = time_flash(q, k, v, causal=True, window=win,
+                                        reps=reps)
+        flash[name, dtype]["model"] = name
+        log("kernel_seeded_flash", **flash[name, dtype])
         del q, k, v
         torch.cuda.empty_cache()
-    args = _ssd_inputs_seeded(g, 2, 4096, 24, 64, 1, 128, 1.0,
-                              torch.bfloat16, dev)
-    scan = time_ssd(*args, chunk=128)
-    scan["model"] = "mamba2-130m"
-    log("kernel_seeded", flash=flash[torch.bfloat16],
-        flash_f32=flash[torch.float32], ssd=scan)
-    return {"flash": flash[torch.bfloat16], "flash_f32": flash[torch.float32],
-            "ssd": scan}
+    scans = {}
+    for name, dtype, (B, S, H, P, G, N) in (
+            ("mamba2-130m", torch.bfloat16, (2, 4096, 24, 64, 1, 128)),
+            ("mamba2-130m", torch.float32, (2, 4096, 24, 64, 1, 128)),
+            ("hymba-1.5b", torch.float32, (2, 4096, 25, 64, 1, 16))):
+        args = _ssd_inputs_seeded(g, B, S, H, P, G, N, 1.0, dtype, dev)
+        scans[name, dtype] = time_ssd(*args, chunk=128)
+        scans[name, dtype]["model"] = name
+        log("kernel_seeded_ssd", **scans[name, dtype])
+        del args
+        torch.cuda.empty_cache()
+    out = {"flash": flash["yi-6b", torch.bfloat16],
+           "flash_f32": flash["yi-6b", torch.float32],
+           "flash_f32_hymba": flash["hymba-1.5b", torch.float32],
+           "ssd": scans["mamba2-130m", torch.bfloat16],
+           "ssd_f32": scans["mamba2-130m", torch.float32],
+           "ssd_f32_hymba": scans["hymba-1.5b", torch.float32]}
+    log("kernel_seeded", seconds=time.perf_counter() - t0,
+        shapes=[f"{k} {v['model']} {v['dtype']}" for k, v in out.items()])
+    return out
 
 
 def phase_reference_check(dev) -> None:
@@ -2029,9 +2103,12 @@ def phase_mesh_1x1(dev, layers: int, steps: int) -> dict:
     prompts = make_prompts(cfg, batch, 128)
     plain = make_prefill_step(cfg, batch, 128, dev).fn(_local_tree(p2),
                                                          prompts)[1]
-    sharded = make_prefill_step(cfg, batch, 128, dev, mesh=mesh).fn(
-        p2, prompts)[1]
-    check(torch.equal(plain, sharded), "the 1x1 prefill's logits differ")
+    meshed = make_prefill_step(cfg, batch, 128, dev, mesh=mesh)
+    sharded = meshed.fn(p2, prompts)[1]
+    check(_at_out_sharding(sharded, meshed.out_shardings[1]),
+          "the 1x1 prefill's logits are not at its out_shardings")
+    check(torch.equal(plain, sharded.full_tensor()),
+          "the 1x1 prefill's logits differ")
 
     _, _, grads = value_and_grad(cfg, _local_tree(p2), {
         k: torch.as_tensor(v, device=dev) for k, v in
@@ -2083,6 +2160,15 @@ def phase_mesh_1x1(dev, layers: int, steps: int) -> dict:
 MESH_ARCH_RECIPES = (None, "sp", "dp")   # None: recipe_for's choice
 
 
+def _at_out_sharding(x, sharding) -> bool:
+    """``x`` is a DTensor at ``sharding``'s placements (a meshed step's
+    logits: sharded as the reference leaves them, never gathered)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding import placements
+    return isinstance(x, DTensor) and tuple(x.placements) == tuple(
+        placements(sharding.mesh, sharding.spec, x.ndim))
+
+
 def phase_mesh_archs(dev) -> dict:
     """Every arch's f32 smoke model on the 1x1 NCCL mesh against one
     device, for each recipe of ``MESH_ARCH_RECIPES`` (``sp`` routes the moe
@@ -2115,14 +2201,23 @@ def phase_mesh_archs(dev) -> dict:
                 b = make_train_step(cfg, TrainConfig(recipe=name), B, S, dev,
                                     mesh=m)
                 p, o, met = b.fn(p, init_opt_state(p), batch)
-                _, logits = make_prefill_step(cfg, B, S, dev, mesh=m,
-                                              recipe_name=name).fn(p, toks)
+                pre = make_prefill_step(cfg, B, S, dev, mesh=m,
+                                        recipe_name=name)
+                _, logits = pre.fn(p, toks)
                 dec = make_decode_step(cfg, B, S, dev, mesh=m)
                 cache = init_cache(cfg, B, S, dev)
                 steps = []
                 for pos in range(2):
                     cache, lg = dec.fn(p, cache, toks[:, pos], pos)
                     steps.append(lg)
+                if m is not None:   # sharded logits, gathered here
+                    check(_at_out_sharding(logits, pre.out_shardings[1])
+                          and all(_at_out_sharding(lg, dec.out_shardings[1])
+                                  for lg in steps),
+                          f"{arch}, recipe {name}: meshed logits are not "
+                          "at the steps' out_shardings")
+                    logits = logits.full_tensor()
+                    steps = [lg.full_tensor() for lg in steps]
                 runs.append(({"p": p, "o": o}, met, logits, steps,
                              b.recipe.name if b.recipe else None))
             (t1, m1, l1, d1, _), (t2, m2, l2, d2, rname) = runs
@@ -2601,7 +2696,8 @@ def _row(name, source, replaces, launches, res, others=()) -> dict:
     row.update({k: res[k] for k in extra if k in res})
     if others:
         row["other_shapes"] = [{k: o[k] for k in keys + extra + (
-            "bytes_bound_ms", "ops_bound_ms") if k in o} for o in others]
+            "bytes_bound_ms", "ops_bound_ms", "alu_bound_ms") if k in o}
+            for o in others]
     return row
 
 
@@ -2721,7 +2817,9 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
     ssd_row = _row("ssd_scan",
                    "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                    "src/repro/kernels/ssd_scan/kernel.py:25",
-                   launches["ssd_scan"], full["ssd"], (seeded["ssd"],))
+                   launches["ssd_scan"], full["ssd"],
+                   (seeded["ssd"], seeded["ssd_f32"],
+                    seeded["ssd_f32_hymba"]))
     ssd_row["cuda_kernel_launches"] = ssd_cuda_kernels
     summary = {"kernels": [
         fp_row,
@@ -2729,7 +2827,8 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:33",
              launches["flash_attention"], full["flash"],
-             (seeded["flash"], seeded["flash_f32"])),
+             (seeded["flash"], seeded["flash_f32"],
+              seeded["flash_f32_hymba"])),
         ssd_row,
     ]}
     card = subprocess.run(CARD_SHELL, capture_output=True, text=True,

@@ -1,7 +1,7 @@
 // Flash attention forward on Hopper (sm_90a): causal and/or sliding-window
 // GQA attention with an online softmax. Two kernels, one function:
 // fa_bf16_kernel takes bf16 inputs (tensor cores fed by TMA), fa_kernel
-// takes f32 inputs (exact f32 FMAs).
+// takes f32 inputs (tensor cores, error-compensated to f32 accuracy).
 //
 // Both replace the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:33 (_fa_kernel, launched by
@@ -29,8 +29,8 @@
 // KV 4, S 4096, D 128, causal) that is 137.5 GFLOP, 0.139 ms, against
 // 0.014 ms for its 46 MB of q, k, v and o; at hymba-1.5b's prefill (B 2,
 // Hq 25, KV 5, S 4096, D 64, window 2048) 80.5 GFLOP, 0.081 ms, against
-// 0.019 ms. The f32 design below runs on the CUDA cores at 1/15 of that
-// rate. What this design does about it:
+// 0.019 ms. (The f32 design below takes three TF32 products, each at half
+// that rate, for each product.) What this design does about it:
 //   * Both products are wgmma (bf16 x bf16 -> f32, m64nNk16). A block is
 //     128 query rows and three warpgroups: one producer, two consumers of
 //     64 rows each. S = Q.K^T is m64n128 over a 128-key tile with Q and K
@@ -66,16 +66,60 @@
 //
 // ---- fa_kernel, the f32 path.
 //
-// f32 inputs must meet 3e-5, so every product is an f32 FMA on the CUDA
-// cores (no TF32); its ceiling is the 67 TFLOP/s f32 rate. What the design
-// does:
-//   * One block per (batch, head, 64-query tile), 128 threads. Each thread
-//     owns a 4 x 8 patch of the 64 x 64 score tile (4 query rows, 8 keys)
-//     and the same 4 rows x D/8 columns of the output, so each shared-memory
-//     load of q, k, p or v feeds 2 to 4 FMAs.
-//   * q and k are kept transposed in shared memory (stride 68 floats) so
-//     the 4 rows and 8 keys a thread needs are two 16-byte loads; p goes
-//     through shared memory to change owners between the two products.
+// f32 inputs must meet 3e-5, which one TF32 product (10 mantissa bits)
+// does not. Both products run on the tensor cores all the same, error-
+// compensated (3xTF32): each f32 operand x is split into hi = tf32(x) and
+// lo = tf32(x - hi), both rounded to nearest with ties away as cvt.rna
+// rounds (hopper::to_tf32), and a product a.b is taken as hi_a.hi_b +
+// hi_a.lo_b + lo_a.hi_b with f32 accumulation; lo_a.lo_b (2^-22 of a.b)
+// is dropped. So the f32 bound is operations: 4 D flops per unmasked
+// pair, three TF32 products each, over the 495 TFLOP/s of the TF32 tensor
+// cores (yi-6b's shape: 3 x 137.5 GFLOP, 0.833 ms; 2.052 ms at the CUDA
+// cores' 67 TFLOP/s, the ceiling of the FMA design this one replaced).
+// The accuracy does not depend on torch's allow_tf32 switch: the split is
+// in the kernel. What the design does:
+//   * mma.sync.m16n8k8 (tf32 x tf32 -> f32), not wgmma: for 32-bit types
+//     wgmma takes both operands K-major only, so P.V would need V
+//     transposed in shared memory; mma.sync reads B fragments with plain
+//     32-bit shared loads.
+//   * A block is 128 query rows in 8 warps of 16 rows (256 threads), over
+//     KV tiles of 64 keys: 8 warps a SM at D 128, against the FMA
+//     design's 4. A
+//     warp's S (16 x 64) and O (16 x D) accumulators stay in registers.
+//   * The contraction order inside each k-step is permuted, the same way
+//     for both operands (a sum does not care): for S = Q.K^T, k-step 2j
+//     takes D columns 16 j + 4 t + {0, 1} and k-step 2j + 1 columns
+//     16 j + 4 t + {2, 3} (t = lane % 4), so one 16-byte load gives a lane
+//     its Q or K fragments of two k-steps; for O += P.V, k-step j takes key
+//     8 j + 2 t as fragment column t and key 8 j + 2 t + 1 as column t + 4,
+//     so the S accumulator of keys 8 j .. 8 j + 7 (columns 2 t, 2 t + 1) is,
+//     register for register, P's A fragment: P never leaves registers and
+//     needs no shuffle.
+//   * Q (scaled after the product, in f32) lives in shared memory and is
+//     split per use; K and V come by cp.async (16 bytes, .cg; 4-byte copies
+//     when a pointer is off a 16-byte boundary) into a ring of 2 stages:
+//     tile j + 1 is in flight while tile j computes. Row strides: D + 16
+//     floats for Q and K (the 16-byte loads of 8 lanes, rows g and g + 1,
+//     fall on 32 distinct banks), D + 4 for V (rows 2 t and 2 t + 1 at
+//     column g fall on bank 8 t + g).
+//   * The 3 products of each fragment go term by term over 4 (S) or 8
+//     (P.V) independent accumulators, so no mma waits on the one before.
+//   * The tensor cores' adder truncates where the f32 ALU rounds, so no
+//     long sum runs through it: S is summed 16 columns of D at a time from
+//     zero and each part added in f32; a tile's P.V is summed from zero
+//     and folded into O as O = alpha O + part (one FFMA a register).
+//     (With the sums run through the tensor cores, chip_smoke.py's edge
+//     cases on an H100 erred up to 1.96e-5; so, 4.2e-6.)
+//   * A warp skips the tiles that are wholly masked for its 16 rows.
+//   * The kernel issues several instructions for each mma, most of them
+//     the splits (each warp splits all of a tile's K and V): it is bound
+//     by issue, not by the tensor cores. So the splits are two integer
+//     operations each, not cvt.rna (which ptxas expands into four), and a
+//     thread's copies take one base address and constant offsets (per-copy
+//     addresses hoisted out of the tile loop held enough registers to
+//     spill).
+//   Shared memory: 215,040 B at D 128, 116,736 at D 64, 67,584 at D 32;
+//   one block a SM. Registers: 254 / 175 / 161 a thread, no spills.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -94,150 +138,301 @@ constexpr int kErrEncode = 20002;      // cuTensorMapEncodeTiled refused
 constexpr int kErrAlign = 20003;       // a pointer off a 16-byte boundary
 
 // ------------------------------------------------------------ the f32 path
-constexpr int kBQ = 64;         // query rows per block
-constexpr int kBK = 64;         // keys per KV tile
-constexpr int kThreads = 128;   // 16 row groups x 8 key groups
-constexpr int kPad = 68;        // row stride (floats) of transposed tiles
+constexpr int kBQ = 128;        // query rows a block: 8 warps x 16
+constexpr int kBK = 64;         // keys a KV tile
+constexpr int kThreads = 256;
+constexpr int kStages = 2;      // the K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
 
+// the f32 tile plan for head dim D (ops.py::f32_tile_plan mirrors it)
 template <int D>
-constexpr int smem_floats() {
-  return 2 * D * kPad + kBK * D + kBK * kPad;
+struct F32Plan {
+  static constexpr int kQK = D + 16;   // row stride (floats) of Q and K
+  static constexpr int kV = D + 4;     // row stride of V
+  static constexpr int kQFloats = kBQ * kQK;
+  static constexpr int kKFloats = kBK * kQK;
+  static constexpr int kStageFloats = kKFloats + kBK * kV;
+  static constexpr int kSmemBytes =
+      (kQFloats + kStages * kStageFloats) * static_cast<int>(sizeof(float));
+};
+
+// rows [r0, r0 + ROWS) of a contiguous (S, D) f32 matrix into shared
+// memory at row stride ``stride``, by cp.async; rows past S read as zero
+// (their source clamped to row 0, which is not read). A thread copies the
+// same columns of every (kThreads / (D / 4))-th row, so its addresses are
+// one base and constant offsets.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, int stride,
+                                          const float* src, int r0, int S,
+                                          bool vec) {
+  static_assert(ROWS * D % (4 * kThreads) == 0, "whole rounds of copies");
+  if (vec) {
+    constexpr int kStep = kThreads / (D / 4);   // rows a round
+    const int r = r0 + threadIdx.x / (D / 4), c = threadIdx.x % (D / 4) * 4;
+    float* d = dst + (r - r0) * stride + c;
+    const float* g = src + static_cast<size_t>(r) * D + c;
+#pragma unroll
+    for (int i = 0; i < ROWS / kStep; ++i) {
+      const bool in = r + i * kStep < S;
+      hopper::cp_async16(d + i * kStep * stride,
+                         in ? g + i * kStep * D : src, in ? 16 : 0);
+    }
+  } else {
+    constexpr int kStep = kThreads / D;
+    const int r = r0 + threadIdx.x / D, c = threadIdx.x % D;
+    float* d = dst + (r - r0) * stride + c;
+    const float* g = src + static_cast<size_t>(r) * D + c;
+    for (int i = 0; i < ROWS / kStep; ++i) {
+      const bool in = r + i * kStep < S;
+      hopper::cp_async4(d + i * kStep * stride, in ? g + i * kStep * D : src,
+                        in ? 4 : 0);
+    }
+  }
 }
 
-// grid: (ceil(S / kBQ), Hq, B). window <= 0 means no window.
+// x = hi + lo, each a tf32 value in an f32 register
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = hopper::to_tf32(x);
+  lo = hopper::to_tf32(x - __uint_as_float(hi));
+}
+
+// d[n] += a . b[n] over N accumulators, 3xTF32, term by term
+template <int N>
+__device__ __forceinline__ void mma3(float (*d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[N][2],
+                                     const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) hopper::mma_m16n8k8_tf32(d[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) hopper::mma_m16n8k8_tf32(d[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) hopper::mma_m16n8k8_tf32(d[n], ah, bh[n][0], bh[n][1]);
+}
+
+// S (16 x 64) = Q (16 x D) . K^T (D x 64). q: Q's row g (row g + 8 is
+// 8 rows on), k: K's key g of the tile, both at column 4 t. Each 16
+// columns of D are summed from zero on the tensor cores, whose adder
+// truncates, and added to S by the f32 ALU, which rounds to nearest; the
+// keys go in two halves of 32 (4 accumulators each) to keep the registers
+// in hand, Q's fragments split once for both.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void qk_f32(float (&sc)[8][4], const float* q,
+                                       const float* k) {
+  using P = F32Plan<D>;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < D / 16; ++j) {
+    const float4 qa = *reinterpret_cast<const float4*>(q + 16 * j);
+    const float4 qb = *reinterpret_cast<const float4*>(q + 8 * P::kQK + 16 * j);
+    // k-step s: a0 (row g), a1 (row g + 8) at column t; a2, a3 at t + 4
+    const float a[2][4] = {{qa.x, qb.x, qa.y, qb.y}, {qa.z, qb.z, qa.w, qb.w}};
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(a[s][i], ah[s][i], al[s][i]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 kf[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        kf[n] = *reinterpret_cast<const float4*>(
+            k + 8 * (4 * h + n) * P::kQK + 16 * j);
+      float part[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          split(s ? kf[n].z : kf[n].x, bh[n][0], bl[n][0]);
+          split(s ? kf[n].w : kf[n].y, bh[n][1], bl[n][1]);
+        }
+        mma3<4>(part, ah[s], al[s], bh, bl);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * h + n][e] += part[n][e];
+    }
+  }
+}
+
+// O (16 x D) = alpha O + P (16 x 64) . V (64 x D). p: the softmax of the
+// S accumulator, in place; v: V's key 2 t of the tile at column g; alpha:
+// the rescale of rows g and g + 8. The tile's product is summed from zero
+// on the tensor cores, 8 output tiles at a time, and added to O by the
+// f32 ALU, so the truncating adder never carries O across tiles.
+template <int D>
+__device__ __forceinline__ void pv_f32(float (&acc)[D / 8][4],
+                                       const float (&p)[8][4],
+                                       const float* v,
+                                       const float (&alpha)[2]) {
+  using P = F32Plan<D>;
+  constexpr int NB = D / 8 < 8 ? D / 8 : 8;   // output tiles a batch
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += NB) {
+    float part[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // keys 8 j + 2 t (column t) and 8 j + 2 t + 1 (column t + 4)
+      const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
+      const float* vj = v + 8 * j * P::kV + 8 * n0;
+      float b[NB][2];
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        b[n][0] = vj[8 * n];
+        b[n][1] = vj[P::kV + 8 * n];
+      }
+      uint32_t bh[NB][2], bl[NB][2];
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        split(b[n][0], bh[n][0], bl[n][0]);
+        split(b[n][1], bh[n][1], bl[n][1]);
+      }
+      mma3<NB>(part, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n0 + n][e] = fmaf(acc[n0 + n][e], alpha[e >> 1], part[n][e]);
+  }
+}
+
+// grid: (B * Hq, ceil(S / kBQ)), query tiles in reverse (heaviest first).
+// window <= 0 means no window; vec: q, k and v are 16-byte aligned.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int Hq,
-          int KVH, int S, float scale, int causal, int window) {
+          int KVH, int S, float scale_log2, int causal, int window,
+          int vec) {
+  using P = F32Plan<D>;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qT = smem;               // [D][kPad]   q tile * scale, transposed
-  float* kT = qT + D * kPad;      // [D][kPad]   k tile, transposed
-  float* vs = kT + D * kPad;      // [kBK][D]    v tile
-  float* pT = vs + kBK * D;       // [kBK][kPad] probabilities, transposed
-  constexpr int DT = D / 8;       // output columns per thread
+  float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][kQK]
+  float* ring = qs + P::kQFloats;   // kStages x {K [kBK][kQK], V [kBK][kV]}
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;        // rows ty*4 .. ty*4+3
-  const int tx = tid & 7;         // keys tx*8 .. tx*8+7, columns tx*DT ..
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int hk = h / (Hq / KVH);
-  const float* qb = q + (static_cast<size_t>(b) * Hq + h) * S * D;
-  const float* kb = k + (static_cast<size_t>(b) * KVH + hk) * S * D;
-  const float* vb = v + (static_cast<size_t>(b) * KVH + hk) * S * D;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    qT[d * kPad + r] =
-        q0 + r < S ? qb[static_cast<size_t>(q0 + r) * D + d] * scale : 0.f;
-  }
-
-  // keys some row of [q0, q0 + kBQ) may see
+  const int bh = blockIdx.x;
+  const int b = bh / Hq;
+  const int kvh = b * KVH + (bh % Hq) / (Hq / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const float* qb = q + static_cast<size_t>(bh) * S * D;
+  const float* kb = k + static_cast<size_t>(kvh) * S * D;
+  const float* vb = v + static_cast<size_t>(kvh) * S * D;
+  // the KV tiles holding a key some row of [q0, q0 + kBQ) may see
   int k_lo = 0, k_hi = S;
   if (causal) k_hi = min(S, q0 + kBQ);
   if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int n_first = k_lo / kBK;
+  const int n_tiles = (k_hi + kBK - 1) / kBK - n_first;
 
-  float m[4], l[4], acc[4][DT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DT; ++c) acc[i][c] = 0.f;
-  }
+  load_rows<D, kBQ>(qs, P::kQK, qb, q0, S, vec);
+  load_rows<D, kBK>(ring, P::kQK, kb, n_first * kBK, S, vec);
+  load_rows<D, kBK>(ring + P::kKFloats, P::kV, vb, n_first * kBK, S, vec);
+  hopper::cp_async_commit();
 
-  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
-    __syncthreads();  // the q tile is in; the last tile's readers are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int c = e / D, d = e % D;
-      const bool in = k0 + c < S;
-      const size_t off = static_cast<size_t>(k0 + c) * D + d;
-      kT[d * kPad + c] = in ? kb[off] : 0.f;
-      vs[c * D + d] = in ? vb[off] : 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w_lo = q0 + 16 * warp, w_hi = w_lo + 15;   // the warp's rows
+  const int row0 = w_lo + g;                           // and row0 + 8
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};   // this thread's share of the row sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = (n_first + it) * kBK;
+    if (it + 1 < n_tiles) {
+      float* next = ring + (it + 1) % kStages * P::kStageFloats;
+      load_rows<D, kBK>(next, P::kQK, kb, k0 + kBK, S, vec);
+      load_rows<D, kBK>(next + P::kKFloats, P::kV, vb, k0 + kBK, S, vec);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();   // this thread's copies of tile it
+    } else {
+      hopper::cp_async_wait<0>();
     }
-    __syncthreads();
-
-    float s[4][8];
+    __syncthreads();                // everyone's copies of tile it
+    const float* ks = ring + it % kStages * P::kStageFloats;
+    const float* vs = ks + P::kKFloats;
+    const bool live = w_lo < S && !(causal && k0 > w_hi) &&
+                      !(window > 0 && w_lo - (k0 + kBK - 1) >= window);
+    if (live) {
+      float sc[8][4];
+      qk_f32<D>(sc, qs + (16 * warp + g) * P::kQK + 4 * t,
+                ks + g * P::kQK + 4 * t);
+      // scale, mask, and the online softmax of rows row0 (e < 2) and
+      // row0 + 8 (e >= 2), each spread over the 4 threads of a quad
+      const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > w_lo) ||
+                        (window > 0 && w_hi - k0 >= window);
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qT + d * kPad + ty * 4);
-      const float4 ka = *reinterpret_cast<const float4*>(kT + d * kPad + tx * 8);
-      const float4 kc = *reinterpret_cast<const float4*>(kT + d * kPad + tx * 8 + 4);
-      const float qq[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kk[8] = {ka.x, ka.y, ka.z, ka.w, kc.x, kc.y, kc.z, kc.w};
+        for (int e = 0; e < 4; ++e) {
+          float s = sc[n][e] * scale_log2;
+          if (edge) {
+            const int qi = row0 + 8 * (e >> 1);
+            const int kj = k0 + 8 * n + 2 * t + (e & 1);
+            const bool ok = kj < S && (!causal || qi >= kj) &&
+                            (window <= 0 || qi - kj < window);
+            s = ok ? s : kNegInf;
+          }
+          sc[n][e] = s;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s);
+        }
+      float alpha[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qq[i], kk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kj = k0 + tx * 8 + j;
-        const bool ok = kj < S && (!causal || qi >= kj) &&
-                        (window <= 0 || qi - kj < window);
-        s[i][j] = ok ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = hopper::exp2_ftz(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
       }
-      // the row's 64 keys live in 8 neighbouring lanes
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < DT; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) pT[(tx * 8 + j) * kPad + ty * 4 + i] = s[i][j];
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = hopper::exp2_ftz(sc[n][e] - m[e >> 1]);
+          l[e >> 1] += sc[n][e];
+        }
+      pv_f32<D>(acc, sc, vs + 2 * t * P::kV + g, alpha);
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(pT + c * kPad + ty * 4);
-      const float pp[4] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-      for (int d4 = 0; d4 < DT; d4 += 4) {
-        const float4 va = *reinterpret_cast<const float4*>(vs + c * D + tx * DT + d4);
-        const float vv[4] = {va.x, va.y, va.z, va.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-            acc[i][d4 + t] = fmaf(pp[i], vv[t], acc[i][d4 + t]);
-      }
-    }
+    __syncthreads();                // stage it % kStages may be refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float den = fmaxf(l[r], 1e-30f);
+    const int qi = row0 + 8 * r;
     if (qi >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((static_cast<size_t>(b) * Hq + h) * S + qi) * D + tx * DT;
+    float* orow = o + (static_cast<size_t>(bh) * S + qi) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < DT; ++c) orow[c] = acc[i][c] / den;
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
   }
 }
 
@@ -245,15 +440,18 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int KVH, int S, float scale, int causal, int window,
                cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  const int bytes = F32Plan<D>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       fa_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
+  const int vec = (reinterpret_cast<uintptr_t>(q) |
+                   reinterpret_cast<uintptr_t>(k) |
+                   reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
   fa_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, KVH, S, scale,
-      causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, KVH, S,
+      scale * kLog2e, causal, window, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -265,7 +463,6 @@ constexpr int kBK = 128;         // keys a KV tile
 constexpr int kThreads = 384;    // producer warpgroup + 2 consumers
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // the tile plan for head dim D (ops.py::tile_plan mirrors it)
 template <int D>
@@ -619,8 +816,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q: (B, Hq, S, D), k/v: (B, KVH, S, D), o: (B, Hq, S, D), all contiguous
-// on the device, f32 (dtype 0) or bf16 (dtype 1; every pointer 16-byte
-// aligned). D in {32, 64, 128}; Hq % KVH == 0; window <= 0 for none.
+// on the device, f32 (dtype 0; any alignment) or bf16 (dtype 1; every
+// pointer 16-byte aligned). D in {32, 64, 128}; Hq % KVH == 0; window <= 0
+// for none.
 // Returns cudaGetLastError() after the launch, or the error that stopped
 // it (see fa_error_string).
 int fa_launch(const void* q, const void* k, const void* v, void* o,
@@ -631,6 +829,8 @@ int fa_launch(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if ((S + kBQ - 1) / kBQ > 65535)   // grid.y: query tiles
+      return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
       case 32: return launch_f32<32>(q, k, v, o, B, Hq, KVH, S, scale, causal, window, st);
       case 64: return launch_f32<64>(q, k, v, o, B, Hq, KVH, S, scale, causal, window, st);
@@ -649,6 +849,16 @@ int fa_launch(const void* q, const void* k, const void* v, void* o,
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dynamic shared memory an f32 block takes at head dim D (0 if none)
+int fa_f32_smem_bytes(int D) {
+  switch (D) {
+    case 32: return F32Plan<32>::kSmemBytes;
+    case 64: return F32Plan<64>::kSmemBytes;
+    case 128: return F32Plan<128>::kSmemBytes;
+  }
+  return 0;
 }
 
 // dynamic shared memory a bf16 block takes at head dim D (0 if none)

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the port's bf16 kernels: mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and the wgmma
-// instructions themselves (flash attention), cp.async, ldmatrix and the
-// warp-level mma.sync (the SSD scan), as inline PTX (no CUTLASS, no
-// PyTorch headers, so a library builds in seconds).
+// Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
+// tile loads, wgmma shared-memory descriptors and the wgmma instructions
+// themselves (flash attention's bf16 path), cp.async, ldmatrix and the
+// warp-level mma.sync (the SSD scan in bf16, flash attention's f32 path in
+// tf32), as inline PTX (no CUTLASS, no PyTorch headers, so a library
+// builds in seconds).
 #pragma once
 
 #include <stdint.h>
@@ -280,6 +281,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// close the group of this thread's cp.async copies issued since the last
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // ------------------------------------------------------------ ldmatrix
 // four 8 x 8 b16 matrices from shared memory, transposed: lanes 8 m ..
 // 8 m + 7 give the addresses of matrix m's rows (16 bytes each, 16-byte
@@ -309,6 +321,32 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
                                              uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------------------------------ tf32
+// f32 -> tf32 (10 mantissa bits), round to nearest with ties away from
+// zero; the result is an f32 bit pattern whose low 13 bits are zero. It
+// equals cvt.rna.tf32.f32 for every finite x and for +-inf: half a tf32
+// unit is added to the magnitude's bits (a carry out of the mantissa moves
+// the exponent on, as rounding up does) and the low bits cut. Two integer
+// operations; ptxas expands cvt.rna.tf32.f32 on sm_90a into four, with a
+// compare and a select for inf and NaN.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// D[16 x 8] += A[16 x 8] . B[8 x 8], tf32 x tf32 -> f32, one warp. With
+// g = lane / 4 and t = lane % 4, a thread holds A's (g, t) in a[0],
+// (g + 8, t) in a[1], (g, t + 4) in a[2], (g + 8, t + 4) in a[3]; B's
+// (t, g) in b0 and (t + 4, g) in b1; D as mma_m16n8k16's.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])

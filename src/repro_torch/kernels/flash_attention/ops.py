@@ -3,8 +3,10 @@
 ``flash_attention`` is the entry point, with the JAX package's signature.
 For tensors on the CPU it runs the plain version (``ref.flash_attention_ref``);
 for tensors on a CUDA device it launches ``csrc/flash_attention.cu``, or
-raises: bf16 inputs go to the tensor-core kernel (wgmma fed by TMA, tiles
-in ``tile_plan``), f32 inputs to the exact f32 one. It never falls back
+raises: bf16 inputs go to the wgmma kernel fed by TMA (tiles in
+``tile_plan``), f32 inputs to the one that runs each product as three TF32
+products on ``mma.sync`` (3xTF32, f32-accurate; tiles in
+``f32_tile_plan``). It never falls back
 from a kernel to the plain version or from one kernel to the other.
 ``flash_attention.launches`` counts kernel launches, and nothing else.
 """
@@ -43,6 +45,22 @@ def tile_plan(d: int) -> dict:
             "smem_bytes": tiles + 8 * (2 * stages + 1) + 1024}
 
 
+def f32_tile_plan(d: int) -> dict:
+    """The f32 kernel's tiles at head dim ``d``, as ``csrc`` fixes them:
+    query rows a block (8 warps of 16), keys a KV tile, ring stages, the
+    row strides in floats of Q and K (d + 16) and of V (d + 4), and the
+    dynamic shared memory a block takes (Q, and the ring of K and V
+    tiles)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
+    q_rows, kv_rows, stages = 128, 64, 2
+    qk_stride, v_stride = d + 16, d + 4
+    floats = q_rows * qk_stride + stages * kv_rows * (qk_stride + v_stride)
+    return {"q_rows": q_rows, "kv_rows": kv_rows, "stages": stages,
+            "warps": q_rows // 16, "qk_stride": qk_stride,
+            "v_stride": v_stride, "smem_bytes": 4 * floats}
+
+
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library."""
     global _lib
@@ -54,8 +72,9 @@ def load_library() -> ctypes.CDLL:
         lib.fa_launch.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
-        lib.fa_bf16_smem_bytes.argtypes = [ctypes.c_int]
-        lib.fa_bf16_smem_bytes.restype = ctypes.c_int
+        for fn in (lib.fa_bf16_smem_bytes, lib.fa_f32_smem_bytes):
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -114,7 +133,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_block`` and ``kv_block`` keep the JAX signature: the plain path
     ignores them, and the kernels take their own tiles (bf16: 128 x 128,
-    ``tile_plan``; f32: 64 x 64; any S, ragged edges masked). The kernels
+    ``tile_plan``; f32: 128 x 64, ``f32_tile_plan``; any S, ragged edges
+    masked). The kernels
     take f32 or bf16, Dv = D in {32, 64, 128}, and a window of at least 1
     (``check_kernel_inputs``)."""
     del q_block, kv_block

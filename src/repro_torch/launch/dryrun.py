@@ -13,9 +13,9 @@ Deviation: the reference compiles for 512 host devices (its ``XLA_FLAGS``
 line) and reads the partitioned program; the port traces rank 0 of a fake
 world of 256 or 512 ranks (``init_process_group("fake")``), eagerly: for
 evenly sharded programs every rank's totals are rank 0's. The meshed
-train and prefill steps end by gathering their metrics or logits to every
-rank (``full_tree``, ``full_tensor``), gathers the reference's compiled
-step does not issue; they are counted, as the port runs them.
+train step ends by gathering its metrics, scalars, to every rank
+(``full_tree``), a gather the reference's compiled step does not issue;
+it is counted, as the port runs it.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh pod

@@ -22,7 +22,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as tckpt
 
-from ..sharding.ctx import constrain, in_current_ctx, settle
+from ..sharding.ctx import constrain, in_current_ctx, narrow_sharded, settle
 from .blocks import FAMILY_APPLY, FAMILY_DECODE, FAMILY_INIT, init_layer_cache
 from .config import ModelConfig
 from .layers import (as_torch_dtype, dense, recomputed, rms_norm, rounded,
@@ -244,7 +244,8 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     logits = dense(x[:, -1], lm_head_weight(cfg, params)) \
         .to(as_torch_dtype(cfg.logit_dtype))
     stacked = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-    return stacked, logits[:, :cfg.vocab]
+    # the vocab stays as the lm head shards it (a DTensor on a mesh)
+    return stacked, narrow_sharded(logits, 1, cfg.vocab)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,

@@ -207,8 +207,12 @@ def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
         return x
     rules, _ = ctx
     spec = rules.get(name)
-    if spec is None:
-        return x
+    return x if spec is None else at_spec(x, spec)
+
+
+def at_spec(x: DTensor, spec: PartitionSpec) -> DTensor:
+    """``x`` at ``spec``'s placements on its own mesh: ``x`` itself where
+    it lies so already, else redistributed (pending sums reduced first)."""
     want = placements(x.device_mesh, spec, x.ndim)
     if tuple(x.placements) == tuple(want):
         return x
@@ -244,6 +248,69 @@ def local_block(shape, mesh, placements_) -> Tuple[Tuple[int, ...],
             size[p.dim] = min(n, start + chunk) - start
             offset[p.dim] += start
     return tuple(size), tuple(offset)
+
+
+def _chunk_bounds(n: int, k: int):
+    """[start, end) of each of ``k`` blocks of a dim of ``n`` cut as
+    DTensor cuts it (``torch.chunk``: blocks of ceil(n / k), the tail
+    ones short or empty)."""
+    c = -(-n // k)
+    return [(min(c * i, n), min(c * (i + 1), n)) for i in range(k)]
+
+
+def narrow_sharded(x: torch.Tensor, dim: int, length: int) -> torch.Tensor:
+    """``x.narrow(dim, 0, length)``, keeping a DTensor that is sharded on
+    ``dim`` over one mesh dim sharded there (the reference's
+    ``logits[:, :vocab]`` on vocab-sharded logits stays sharded).
+    DTensor cuts a dim at ``torch.chunk``'s boundaries, which move when the
+    dim shrinks, and its own slice of a sharded dim gathers the whole dim
+    to every rank. Here each rank sends the others only the entries of its
+    block that fall in theirs (one all-to-all over that mesh dim, where XLA
+    issues a collective-permute) and keeps its own. Plain tensors, and any
+    other layout, take ``narrow``."""
+    if not isinstance(x, DTensor):
+        return x.narrow(dim, 0, length)
+    if length == x.shape[dim]:
+        return x
+    on = [i for i, p in enumerate(x.placements)
+          if isinstance(p, Shard) and p.dim == dim]
+    if len(on) != 1 or type(x.placements[on[0]]) is not Shard or \
+            any(p.is_partial() for p in x.placements):
+        return x.narrow(dim, 0, length)
+    from torch.distributed import _functional_collectives as funcol
+    mesh, md = x.device_mesh, on[0]
+    k, r = mesh.size(md), mesh.get_local_rank(md)
+    old, new = _chunk_bounds(x.shape[dim], k), _chunk_bounds(length, k)
+
+    def overlap(a, b):
+        return max(0, min(a[1], b[1]) - max(a[0], b[0]))
+
+    local = x.to_local().movedim(dim, 0)
+    base = old[r][0]
+    pieces = []
+    for j in range(k):      # this rank's entries that rank j's block takes
+        lo = max(old[r][0], new[j][0])
+        pieces.append(local[lo - base:lo - base + overlap(old[r], new[j])])
+    if any(overlap(old[i], new[j]) for i in range(k) for j in range(k)
+           if i != j):
+        send = [n if j != r else 0 for j, n in enumerate(
+            overlap(old[r], new[j]) for j in range(k))]
+        recv = [n if j != r else 0 for j, n in enumerate(
+            overlap(old[j], new[r]) for j in range(k))]
+        got = funcol.all_to_all_single(
+            torch.cat([p for j, p in enumerate(pieces) if j != r])
+            .contiguous(), recv, send, mesh.get_group(md))
+        parts = list(torch.split(funcol.wait_tensor(got), recv))
+        parts[r] = pieces[r]
+    else:
+        parts = [pieces[r]]
+    block = torch.cat(parts).movedim(0, dim).contiguous()
+    shape = list(x.shape)
+    shape[dim] = length
+    return DTensor.from_local(block, mesh, x.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def partial_over(mesh, spec: PartitionSpec, ndim: int):

@@ -43,8 +43,8 @@ from ..models.model import (decode_step, init_cache, loss_fn, param_specs,
                             prefill)
 from ..optim import AdamWConfig, apply_update
 from ..optim.adamw import tree_leaves, tree_map
-from ..sharding.ctx import (NamedSharding, activation_ctx, from_full,
-                            full_tree, shard_tree, spec_axes)
+from ..sharding.ctx import (NamedSharding, activation_ctx, at_spec,
+                            from_full, full_tree, shard_tree, spec_axes)
 from ..sharding.rules import (PartitionSpec as P, Recipe, activation_rules,
                               batch_specs, cache_specs, mesh_sizes,
                               opt_specs, param_specs_tree, recipe_for,
@@ -256,6 +256,14 @@ def _tokens(tokens, shape: Tuple[int, ...], device) -> torch.Tensor:
     return t.long()
 
 
+def _logits_spec(recipe: Recipe, bspec) -> P:
+    """Where a meshed step leaves its logits (B, vocab): the batch as the
+    tokens lie, the vocab over "model" as the lm head shards it, except
+    under "dp", whose batch takes "model" too (the reference's decode rule
+    ``logits``, and what its prefill's partitioner gives)."""
+    return P(bspec[0], "model") if recipe.name != "dp" else P(bspec[0], None)
+
+
 def _place_tokens(tokens, shape, mesh, spec) -> DTensor:
     if isinstance(tokens, DTensor):
         return from_full(tokens, mesh, spec)
@@ -274,7 +282,9 @@ def make_prefill_step(cfg: ModelConfig, global_batch: int, seq_len: int,
     With a ``DeviceMesh``: the prefill recipe (or ``recipe_name``) lays out
     params and tokens (plain inputs are laid out on the call), the cache
     comes back as DTensors at the decode cache's specs, and the logits as
-    the full tensor on every rank."""
+    the DTensor the step computed, at ``out_shardings[1]``: batch as the
+    tokens, vocab over "model" (batch only under "dp"); a caller that
+    needs the whole tensor calls ``full_tensor()``."""
     pshape = param_specs(cfg)
     recipe = in_sh = out_sh = None
     if mesh is None:
@@ -292,7 +302,9 @@ def make_prefill_step(cfg: ModelConfig, global_batch: int, seq_len: int,
         in_sh = [_named(mesh, pspec), _named(mesh, bspec["tokens"])]
         if cfg.n_prefix_embeds:
             in_sh.append(_named(mesh, bspec["prefix_embeds"]))
-        in_sh, out_sh = tuple(in_sh), (_named(mesh, cspec), None)
+        lspec = _logits_spec(recipe, bspec["tokens"])
+        in_sh, out_sh = tuple(in_sh), (_named(mesh, cspec),
+                                       _named(mesh, lspec))
 
     def step(params, tokens, prefix_embeds=None):
         if mesh is None:
@@ -309,7 +321,7 @@ def make_prefill_step(cfg: ModelConfig, global_batch: int, seq_len: int,
                                       bspec["prefix_embeds"])
         with activation_ctx(arules, mesh), torch.no_grad():
             cache, logits = prefill(cfg, params, tokens, prefix_embeds)
-        return shard_tree(cache, mesh, cspec), logits.full_tensor()
+        return shard_tree(cache, mesh, cspec), at_spec(logits, lspec)
 
     return StepBundle(fn=step, in_shardings=in_sh, out_shardings=out_sh,
                       recipe=recipe, abstract_inputs=(pshape,))
@@ -327,7 +339,10 @@ def make_decode_step(cfg: ModelConfig, global_batch: int, cache_len: int,
     With a ``DeviceMesh``: params at the train recipe's placements (as the
     reference places decode weights), the cache at the decode recipe's
     (``recipe_name`` or "decode"; plain inputs are laid out on the call),
-    and the logits as the full tensor on every rank."""
+    and the logits as the DTensor the step computed, at the recipe's
+    ``logits`` rule (``out_shardings[1]``: vocab over "model", batch over
+    the batch axes; batch only under "dp"); a caller that needs the whole
+    tensor calls ``full_tensor()``."""
     pshape = param_specs(cfg)
     cshape = init_cache(cfg, global_batch, cache_len, "meta")
     want = {k: tuple(v.shape) for k, v in cshape.items()}
@@ -343,7 +358,8 @@ def make_decode_step(cfg: ModelConfig, global_batch: int, cache_len: int,
         tspec = P(batch_specs(cfg, recipe, mesh, global_batch)["tokens"][0])
         in_sh = (_named(mesh, pspec), _named(mesh, cspec),
                  _named(mesh, tspec), _named(mesh, P()))
-        out_sh = (in_sh[1], None)
+        lspec = arules["logits"]
+        out_sh = (in_sh[1], _named(mesh, lspec))
 
     def step(params, cache, tokens, pos):
         got = {k: tuple(v.shape) for k, v in cache.items()}
@@ -359,7 +375,7 @@ def make_decode_step(cfg: ModelConfig, global_batch: int, cache_len: int,
         tokens = _place_tokens(tokens, (global_batch,), mesh, tspec)
         with activation_ctx(arules, mesh), torch.no_grad():
             cache, logits = decode_step(cfg, params, cache, tokens, int(pos))
-        return shard_tree(cache, mesh, cspec), logits.full_tensor()
+        return shard_tree(cache, mesh, cspec), at_spec(logits, lspec)
 
     return StepBundle(fn=step, in_shardings=in_sh, out_shardings=out_sh,
                       recipe=recipe, abstract_inputs=(pshape, cshape))

@@ -10,8 +10,12 @@ sum in other orders), 3e-2 in bf16 (one bf16 rounding of the output).
 The CUDA kernels themselves run only on a card: chip_smoke.py holds them
 against this plain path there. Here an emulation of the bf16 kernel's
 rounding points (written below, not in the package) is held against the
-Pallas kernel, to show that the bf16 tolerance admits the design, and the
-wrapper's tile plan and input checks are tested.
+Pallas kernel, to show that the bf16 tolerance admits the design; one of
+the f32 kernel's arithmetic (each product as three TF32 products of
+operands split into tf32 hi and lo parts, by bit masking) is held against
+the JAX reference and the Pallas kernel at the unchanged f32 tolerance,
+and one TF32 product a multiply shown to miss it; and the wrapper's tile
+plans and input checks are tested.
 """
 import numpy as np
 import pytest
@@ -270,3 +274,123 @@ def test_kernel_input_checks():
         ops.check_kernel_inputs(*qkv(torch.bfloat16, 16))
     with pytest.raises(ValueError, match="f32 or all bf16"):
         ops.check_kernel_inputs(*qkv(torch.float16, 64))
+
+
+# ----------------------------------------------- the f32 kernel's 3xTF32
+# What csrc/flash_attention.cu's f32 path computes, in f32 torch: 128-row
+# query blocks over 64-key tiles; each product (q.k^T, then p.v) taken as
+# three TF32 products, hi.hi + hi.lo + lo.hi, of operands split as
+# hi = tf32(x), lo = tf32(x - hi), lo.lo dropped; tf32(x) rounds to 10
+# mantissa bits, to nearest with ties away from zero (the kernel's
+# hopper::to_tf32, cvt.rna's rounding), here by the same bit masking.
+# Scores are scaled by scale * log2(e) after the product, masked entries
+# -1e30, the online softmax in f32 with exp2. The CUDA kernel also keeps
+# each sum short on the tensor cores, whose adder truncates; that is not
+# emulated (the card's edge cases in chip_smoke.py hold it).
+F32_KERNEL_ROWS, F32_KERNEL_KEYS = 128, 64
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _three_products(a: torch.Tensor, b: torch.Tensor,
+                    terms: int = 3) -> torch.Tensor:
+    """a @ b from TF32 products: hi.hi + hi.lo + lo.hi (``terms`` 1: hi.hi
+    alone, a single TF32 product)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _emulate_f32_kernel(q, k, v, *, causal=True, window=None, scale=None,
+                        terms=3):
+    B, Hq, S, D = q.shape
+    G = Hq // k.shape[1]
+    scale_log2 = (scale if scale is not None else D ** -0.5) * LOG2E
+    kf = torch.repeat_interleave(k, G, dim=1)
+    vf = torch.repeat_interleave(v, G, dim=1)
+    R, K = F32_KERNEL_ROWS, F32_KERNEL_KEYS
+    out = torch.empty_like(q)
+    for q0 in range(0, S, R):
+        rows = torch.arange(q0, q0 + R)
+        qb = torch.zeros((B, Hq, R, D))
+        qb[:, :, :min(R, S - q0)] = q[:, :, q0:q0 + R]
+        k_lo = max(0, q0 - window + 1) if window else 0
+        k_hi = min(S, q0 + R) if causal else S
+        m = torch.full((B, Hq, R), -1e30)
+        l = torch.zeros((B, Hq, R))
+        acc = torch.zeros((B, Hq, R, D))
+        for k0 in range(k_lo // K * K, k_hi, K):
+            keys = torch.arange(k0, k0 + K)
+            kb = torch.zeros((B, Hq, K, D))
+            vb = torch.zeros((B, Hq, K, D))
+            kb[:, :, :min(K, S - k0)] = kf[:, :, k0:k0 + K]
+            vb[:, :, :min(K, S - k0)] = vf[:, :, k0:k0 + K]
+            s = _three_products(qb, kb.transpose(-1, -2), terms) * scale_log2
+            ok = keys[None, :] < S
+            if causal:
+                ok = ok & (rows[:, None] >= keys[None, :])
+            if window:
+                ok = ok & (rows[:, None] - keys[None, :] < window)
+            s = torch.where(ok, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + _three_products(p, vb, terms)
+            m = m_new
+        res = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, :, q0:q0 + R] = res[:, :, :S - q0]
+    return out
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                       # a tf32 value
+    half = 2.0 ** -11                            # half its last unit
+    x = torch.tensor([one, one + half, 1.0 + half, -(1.0 + half),
+                      1.0 + half * 0.99, 3.0, 0.0, float("inf"),
+                      2.0 - 2.0 ** -23], dtype=torch.float32)
+    got = _tf32(x).tolist()
+    assert got == [one, one + 2 * half, 1.0 + 2 * half, -(1.0 + 2 * half),
+                   1.0, 3.0, 0.0, float("inf"), 2.0]
+    assert not (_tf32(torch.randn(1000)).view(torch.int32) & 0x1fff).any()
+
+
+@pytest.mark.parametrize("case", sorted(EMULATION_CASES))
+def test_f32_kernel_three_tf32_products_are_inside_the_tolerance(case):
+    B, Hq, KVH, S, D, win, qb, kb, causal, scale = EMULATION_CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "float32")
+    kw = dict(causal=causal, window=win, scale=scale)
+    got = _emulate_f32_kernel(tq, tk, tv, **kw)
+    assert got.dtype == torch.float32 and got.shape == tq.shape
+    assert _err(got, jax_reference(jq, jk, jv, **kw)) < TOL["float32"]
+    assert _err(got, jax_flash(jq, jk, jv, q_block=qb, kv_block=kb,
+                               interpret=True, **kw)) < TOL["float32"]
+
+
+def test_one_tf32_product_is_outside_the_tolerance():
+    """The split is what meets 3e-5: one TF32 product a multiply misses."""
+    B, Hq, KVH, S, D, win, qb, kb, causal, scale = EMULATION_CASES["fa_0"]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "float32")
+    got = _emulate_f32_kernel(tq, tk, tv, terms=1)
+    assert _err(got, jax_reference(jq, jk, jv)) > TOL["float32"]
+
+
+@pytest.mark.parametrize("d", ops.HEAD_DIMS)
+def test_f32_tile_plan_fits_a_block(d):
+    plan = ops.f32_tile_plan(d)
+    assert plan["smem_bytes"] <= 232_448   # the most a block may use
+    assert plan["q_rows"] == 16 * plan["warps"]    # m16 rows a warp
+    assert plan["kv_rows"] % 8 == 0 and plan["stages"] >= 2
+    # conflict-free fragment loads: 16-byte loads of rows g, g + 1 (Q, K),
+    # 4-byte loads of rows 2t, 2t + 1 at column g (V)
+    assert plan["qk_stride"] % 32 == 16 and (2 * plan["v_stride"]) % 32 == 8
+    floats = plan["q_rows"] * plan["qk_stride"] + plan["stages"] * \
+        plan["kv_rows"] * (plan["qk_stride"] + plan["v_stride"])
+    assert plan["smem_bytes"] == 4 * floats
+    with pytest.raises(ValueError, match="head dims"):
+        ops.f32_tile_plan(96)

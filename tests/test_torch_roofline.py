@@ -262,6 +262,16 @@ for arch, recipe in CASES:
             t = analyze_text(lowered.compile().as_text())
         out[f"{arch}/{sp.kind}"] = {"flops": t.flops, "coll": t.coll,
                                     "recipe": bundle.recipe.name}
+cfg = get_smoke_config("yi-6b").replace(**F32)
+sp = TINY[2]
+specs = input_specs(cfg, sp.name)
+with mesh_context(mesh):
+    bundle = make_decode_step(cfg, mesh, sp.global_batch, sp.seq_len)
+    t = analyze_text(bundle.fn.lower(
+        bundle.abstract_inputs[0], specs["cache"], specs["tokens"],
+        specs["pos"]).compile().as_text())
+out["yi-6b-f32/decode"] = {"flops": t.flops, "coll": t.coll,
+                           "recipe": bundle.recipe.name}
 print("RESULT " + json.dumps(out))
 """
 
@@ -281,6 +291,11 @@ for arch, recipe in CASES:
         out[f"{arch}/{sp.kind}"] = {"flops": d["flops_per_device"],
                                     "coll": d["coll_bytes"],
                                     "recipe": d["recipe"]}
+smoke = get_smoke_config("yi-6b").replace(**F32)
+fields = {f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)}
+d = run_cell("yi-6b", TINY[2].name, "2x2", device="cpu", extra=fields)
+out["yi-6b-f32/decode"] = {"flops": d["flops_per_device"],
+                           "coll": d["coll_bytes"], "recipe": d["recipe"]}
 print("RESULT " + json.dumps(out))
 """
 
@@ -290,6 +305,7 @@ CASES = [("yi-6b", "tp"), ("granite-moe-3b-a800m", "sp"),
 TINY = [ShapeSpec("tiny_train", "train", 32, 8),
         ShapeSpec("tiny_prefill", "prefill", 32, 4),
         ShapeSpec("tiny_decode", "decode", 64, 4)]
+F32 = dict(param_dtype="float32", compute_dtype="float32")
 """
 
 # (arch, kind) -> (lowest, highest) port / reference ratio
@@ -360,3 +376,30 @@ def test_dot_flops_match_the_reference_on_2x2(traced, case):
           f"{port['coll']} reference {ref['coll']}")
     assert lo <= ratio <= hi, (key, port["flops"], ref["flops"])
 
+
+
+# port / reference collective wire bytes (``collective_bytes``' total) of
+# yi-6b's meshed decode in f32 on 2x2, and the same kind by kind
+DECODE_COLL_TOLERANCE = 0.01
+
+
+def test_decode_collective_bytes_match_the_reference_on_2x2(traced):
+    """yi-6b's decode step in f32 on a 2x2 mesh moves the reference's
+    collective bytes: per layer the split-cache combine's all-reduces, the
+    new token's K/V gathers and the two TP output sums, and the
+    vocab-sharded lookup's sum, with the logits left vocab-sharded as the
+    reference leaves them (gathering them to every rank added 6,144 B, 65%
+    more). In f32, because XLA on the CPU widens the bf16 model's
+    collectives to f32 where the port moves them in bf16."""
+    key = "yi-6b-f32/decode"
+    port = {k: v for k, v in traced["port"][key]["coll"].items()
+            if k != "total"}
+    ref = traced["ref"][key]["coll"]
+    total_p = collective_bytes(port)["total"]
+    total_r = collective_bytes(ref)["total"]
+    print(f"{key}: collective bytes port {port} reference {ref}, wire "
+          f"{total_p:.0f} / {total_r:.0f}")
+    assert abs(total_p / total_r - 1.0) <= DECODE_COLL_TOLERANCE
+    for kind in set(port) | set(ref):
+        assert abs(port.get(kind, 0.0) - ref.get(kind, 0.0)) <= \
+            DECODE_COLL_TOLERANCE * total_r, (kind, port, ref)

@@ -285,14 +285,14 @@ for arch in ARCHS:
     for i, m in enumerate((None, mesh)):
         cache, logits = make_prefill_step(cfg, B, S, device="cpu",
                                           mesh=m).fn(p, toks)
-        res[f"{arch}/{i}/prefill"] = logits.numpy()
+        res[f"{arch}/{i}/prefill"] = full_tree(logits).numpy()
         for k, v in full_tree(cache).items():
             res[f"{arch}/{i}/cache/{k}"] = v.numpy()
         dec = make_decode_step(cfg, B, S + 2, device="cpu", mesh=m)
         cache = init_cache(cfg, B, S + 2, "cpu")
         for pos in range(3):
             cache, logits = dec.fn(p, cache, toks[:, pos], pos)
-            res[f"{arch}/{i}/decode{pos}"] = logits.numpy()
+            res[f"{arch}/{i}/decode{pos}"] = full_tree(logits).numpy()
         for k, v in full_tree(cache).items():
             res[f"{arch}/{i}/dcache/{k}"] = v.numpy()
 if rank == 0:
@@ -315,6 +315,44 @@ def test_meshed_prefill_and_decode_match_one_device_on_2x2(tmp_path):
         for name in names:
             assert _rel(out[f"{arch}/1/{name}"], out[f"{arch}/0/{name}"]) \
                 <= TRAIN_REL_TOL, (arch, name)
+
+
+_NARROW = """
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.sharding.ctx import narrow_sharded
+mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
+x = torch.arange(3 * 256, dtype=torch.float32).reshape(3, 256)
+res = {}
+for n in (256, 250, 199, 130, 3):
+    for places in ([Replicate(), Shard(1)], [Replicate(), Replicate()]):
+        d = DTensor.from_local(x.chunk(4, 1)[rank] if places[1] != Replicate()
+                               else x, mesh, places)
+        got = narrow_sharded(d, 1, n)
+        assert list(got.placements) == places, got.placements
+        assert got.shape == (3, n)
+        c = -(-n // 4)     # torch.chunk's blocks, the tail ones empty
+        block = x[:, min(c * rank, n):min(c * rank + c, n)]
+        assert torch.equal(got.to_local(), block
+                           if places[1] != Replicate() else x[:, :n])
+        res[f"{n}/{places[1]}"] = got.full_tensor().numpy()
+if rank == 0:
+    np.savez(f"{OUT}/out.npz", **res)
+"""
+
+
+def test_narrow_sharded_keeps_the_vocab_sharded_on_4_ranks(tmp_path):
+    """``narrow_sharded`` on a dim cut over 4 ranks of "model": each
+    rank's block is the narrowed tensor's ``torch.chunk`` block (every
+    rank's boundary moves; 3 leaves rank 3 empty), the placements stay,
+    and a replicated tensor narrows in place."""
+    _run(tmp_path, 4, _NARROW)
+    out = np.load(tmp_path / "out.npz")
+    x = np.arange(3 * 256, dtype=np.float32).reshape(3, 256)
+    assert len(out.files) == 10
+    for key in out.files:
+        n = int(key.split("/")[0])
+        assert np.array_equal(out[key], x[:, :n]), key
 
 
 _RESHARD = """

@@ -21,7 +21,9 @@ collectives counted on a fake 2x2 world.
 * Rank 0 of a fake world of 4 on a 2x2 mesh (a subprocess; shapes only):
   the meshed yi-6b decode step all-gathers no cache bytes (no gathered
   tensor has the cache's length), all-reduces the combine's statistics,
-  and makes no copy of its stacked cache (updated in place); a train step
+  and makes no copy of its stacked cache (updated in place); neither it
+  nor the meshed prefill gathers its logits, which come back vocab-sharded
+  at the step's ``out_shardings``; a train step
   of 4 microbatches gathers each batch array at most once, where one
   gather a microbatch was issued before.
 """
@@ -224,7 +226,10 @@ from repro_torch.configs import SHAPES, ShapeSpec, get_smoke_config, input_specs
 from repro_torch.launch.dryrun import _fake_inputs
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.roofline import count
-from repro_torch.train import TrainConfig, make_decode_step, make_train_step
+from repro_torch.models import param_specs
+from repro_torch.sharding import placements
+from repro_torch.train import (TrainConfig, make_decode_step,
+                               make_prefill_step, make_train_step)
 dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
 mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
 ops = []
@@ -243,8 +248,26 @@ class Shapes(count.Counter):
 
 cfg = get_smoke_config("yi-6b")
 SHAPES["t_decode"] = ShapeSpec("t_decode", "decode", CACHE, 4)
+SHAPES["t_prefill"] = ShapeSpec("t_prefill", "prefill", 16, 4)
 SHAPES["t_train"] = ShapeSpec("t_train", "train", 16, 8)
-out = {}
+out = {"vocab": cfg.vocab,
+       "padded_vocab": list(param_specs(cfg)["embed"].shape)[0]}
+
+
+def named(places):
+    return [[type(p).__name__, getattr(p, "dim", None)] for p in places]
+
+
+def logits_at(logits, sharding):
+    if sharding is None or not hasattr(logits, "placements"):
+        return {"placements": None, "spec": None, "local": None}
+    return {"placements": named(logits.placements),
+            "want": named(placements(sharding.mesh, sharding.spec,
+                                     logits.ndim)),
+            "spec": str(sharding.spec), "local": list(
+                logits.to_local().shape)}
+
+
 with FakeTensorMode():
     dec = make_decode_step(cfg, 4, CACHE, mesh=mesh)
     specs = input_specs(cfg, "t_decode")
@@ -253,8 +276,17 @@ with FakeTensorMode():
                 dec.in_shardings)]
     out["local_cache"] = list(args[1]["k"].to_local().shape)
     with Shapes():
-        dec.fn(*args, CACHE - 1)
+        _, logits = dec.fn(*args, CACHE - 1)
     out["decode"], ops[:] = list(ops), []
+    out["decode_logits"] = logits_at(logits, dec.out_shardings[1])
+    pre = make_prefill_step(cfg, 4, 16, mesh=mesh)
+    specs = input_specs(cfg, "t_prefill")
+    args = [_fake_inputs(m, s, "cpu") for m, s in
+            zip((pre.abstract_inputs[0], specs["tokens"]), pre.in_shardings)]
+    with Shapes():
+        _, logits = pre.fn(*args)
+    out["prefill"], ops[:] = list(ops), []
+    out["prefill_logits"] = logits_at(logits, pre.out_shardings[1])
     tr = make_train_step(cfg, TrainConfig(microbatches=4), 8, 16, mesh=mesh)
     specs = input_specs(cfg, "t_train")
     pshape, oshape, _ = tr.abstract_inputs
@@ -300,6 +332,26 @@ def test_meshed_decode_updates_its_cache_in_place(fake_2x2):
     made = [(k, s) for k, s in fake_2x2["decode"]
             if s == local or s == local[1:]]
     assert made == [], made
+
+
+@pytest.mark.parametrize("step", ["decode", "prefill"])
+def test_meshed_step_leaves_its_logits_vocab_sharded(fake_2x2, step):
+    """Neither meshed step gathers its logits: no all-gather has the
+    width of the padded vocab, of the vocab, or of either's block on a
+    rank of "model", and the logits come back as the DTensor the step
+    computed, at its ``out_shardings`` (batch over "data", vocab over
+    "model"), as the reference leaves them. The prefill's cut of the
+    padded vocab to the vocab moves only the entries that change blocks
+    (an all-to-all; none reach rank 0)."""
+    vp, v = fake_2x2["padded_vocab"], fake_2x2["vocab"]
+    assert vp > v             # the smoke vocab is padded: both widths differ
+    widths = {vp, v, -(-vp // 2), -(-v // 2)}
+    gathers = [s for k, s in fake_2x2[step] if k == "all-gather"]
+    assert not [s for s in gathers if s[-1] in widths], gathers
+    got = fake_2x2[f"{step}_logits"]
+    assert got["spec"] == "PartitionSpec('data', 'model')"
+    assert got["placements"] == got["want"] == [["Shard", 0], ["Shard", 1]]
+    assert got["local"] == [2, -(-(vp if step == "decode" else v) // 2)]
 
 
 def test_microbatches_gather_each_batch_array_once_a_step(fake_2x2):
