@@ -10,7 +10,8 @@ wgmma, or if one of the SSD scan's or the f32 flash kernels spills), and
 holds each kernel against its plain torch version on edge cases: the
 fingerprint bit-exactly, flash attention (its f32 kernel, three TF32
 products a product on ``mma.sync``, and its bf16 ``wgmma`` kernel) and
-the SSD scan within the JAX kernel tests' tolerances. It checks the f32
+the SSD scan (f32 also as three TF32 products a product) within the JAX
+kernel tests' tolerances. It checks the f32
 smoke model of every arch of the registry on the card against the CPU,
 and the MoE dispatch (``moe_dispatch``) at full mixtral-8x7b and
 granite-moe-3b-a800m width, then runs the serving half of the main path
@@ -149,9 +150,10 @@ HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 on the tensor cores
 TF32_TENSOR_OPS_PER_S = 495e12     # dense TF32 on the tensor cores
-# flash attention's f32 kernel takes each product as three TF32 products
-# (3xTF32: hi.hi + hi.lo + lo.hi), its bound as such beside the CUDA cores'
-FLASH_F32_TF32_PRODUCTS = 3
+# the f32 kernels (flash attention's, the SSD scan's) take each product as
+# three TF32 products (3xTF32: hi.hi + hi.lo + lo.hi), their bound as such
+# beside the CUDA cores'
+F32_TF32_PRODUCTS = 3
 # integer operations per u32 lane of the fingerprint: 3 multiplies, 1 add,
 # 2 xors and 1 shift in the mix, 1 xor and 1 add into the row's sums
 FP_OPS_PER_LANE = 9
@@ -603,6 +605,12 @@ SSD_EDGE_CASES = [
                                               # N of 4): bf16 plain loads and
                                               # stores, a short last chunk
 ]
+# f32 only: |A| small, so the decay stays near 1 and the states and y sum
+# every term at full weight over long runs, where a truncating adder in the
+# tensor cores' sums would show
+SSD_F32_CASES = [
+    (1, 1024, 2, 64, 1, 128, 128, 0.01),
+]
 # cases run again with x, Bc and Cc each a contiguous view one element into
 # its storage: no longer 16-byte aligned, so the bf16 kernels take their
 # plain loads and stores at shapes that would allow 16-byte ones
@@ -685,13 +693,17 @@ def _one_element_in(t: torch.Tensor) -> torch.Tensor:
 def phase_ssd_edges(dev) -> None:
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.models.ssm import ssd_chunked, ssd_reference
+    t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(22)
-    worst = {}
-    cases = [(c, False) for c in SSD_EDGE_CASES] + \
-        [(c, True) for c in SSD_UNALIGNED_CASES]
-    for case, unaligned in cases:
+    worst, long_sums, long_secs = {}, None, 0.0
+    both = (torch.float32, torch.bfloat16)
+    cases = [(c, False, both) for c in SSD_EDGE_CASES] + \
+        [(c, True, both) for c in SSD_UNALIGNED_CASES] + \
+        [(c, False, (torch.float32,)) for c in SSD_F32_CASES]
+    for case, unaligned, dtypes in cases:
         B, S, H, P, G, N, chunk, a_scale = case
-        for dtype in (torch.float32, torch.bfloat16):
+        t_case = time.perf_counter()
+        for dtype in dtypes:
             args = _ssd_inputs_seeded(g, B, S, H, P, G, N, a_scale, dtype,
                                       dev)
             if unaligned:
@@ -717,17 +729,26 @@ def phase_ssd_edges(dev) -> None:
             name = str(dtype).split(".")[-1]
             w = worst.setdefault(name, {"rel_vs_plain": 0.0,
                                         "abs_vs_reference": 0.0})
-            w["rel_vs_plain"] = max(w["rel_vs_plain"], *errs)
+            if max(errs) >= w["rel_vs_plain"]:
+                w["rel_vs_plain"], w["worst_case"] = max(errs), case
             w["abs_vs_reference"] = max(w["abs_vs_reference"],
                                         _max_err(y, y_r), _max_err(h, h_r))
+            if case in SSD_F32_CASES:
+                long_sums = errs
+        if case in SSD_F32_CASES:
+            long_secs += time.perf_counter() - t_case
     log("kernel_edges_ssd", cases=len(cases), dtypes=2,
-        max_err=worst, tol={"float32": 2e-5, "bfloat16": 5e-2})
+        f32_only_cases=len(SSD_F32_CASES), f32_long_sums_rel=long_sums,
+        f32_long_sums_seconds=long_secs, max_err=worst,
+        tol={"float32": 2e-5, "bfloat16": 5e-2},
+        seconds=time.perf_counter() - t0)
 
 
 def _ops_rate(dtype, tf32: bool = False) -> float:
     """The peak for ``dtype``'s operations: bf16 on the tensor cores; f32
-    on the CUDA cores, or with ``tf32`` (flash attention's f32 kernel
-    only, whose products are 3xTF32) on the tensor cores at TF32."""
+    on the CUDA cores, or with ``tf32`` (the f32 kernels of flash attention
+    and the SSD scan, whose products are 3xTF32) on the tensor cores at
+    TF32."""
     if dtype == torch.bfloat16:
         return BF16_TENSOR_OPS_PER_S
     return TF32_TENSOR_OPS_PER_S if tf32 else ALU32_OPS_PER_S
@@ -756,7 +777,7 @@ def flash_bound(q, k, causal: bool, window) -> dict:
     flops = 4.0 * D * pairs
     if q.dtype == torch.bfloat16:
         return _bound(nbytes, flops, q.dtype)
-    res = _bound(nbytes, FLASH_F32_TF32_PRODUCTS * flops, q.dtype, tf32=True)
+    res = _bound(nbytes, F32_TF32_PRODUCTS * flops, q.dtype, tf32=True)
     res.update(flops=flops, alu_bound_ms=max(
         nbytes / HBM_BYTES_PER_S, flops / ALU32_OPS_PER_S) * 1e3)
     return res
@@ -766,7 +787,9 @@ def ssd_bound(x, Bc, chunk: int) -> dict:
     """Per chunk of Q steps with T = Q (Q + 1) / 2 pairs i >= j: C.B^T 2 N T
     a group, and a head 2 P T (scores.x) + 3 T (decay, dt) + 2 Q N P
     (incoming state) + 2 Q N P (state update) + 2 Q P (skip). Bytes: x, dt,
-    B, C read once, y and h written once."""
+    B, C read once, y and h written once. In f32 the operations are the
+    kernels' three TF32 products each, over the TF32 tensor rate
+    (``alu_bound_ms``: the flops alone over the CUDA cores' f32 rate)."""
     B, S, H, P = x.shape
     G, N = Bc.shape[2], Bc.shape[3]
     chunk = min(chunk, S)
@@ -778,7 +801,12 @@ def ssd_bound(x, Bc, chunk: int) -> dict:
                                          + 2 * Q * P))
     nbytes = 2 * x.numel() * x.element_size() + B * S * H * 4 \
         + 2 * Bc.numel() * Bc.element_size() + B * H * P * N * 4 + 2 * H * 4
-    return _bound(nbytes, ops, x.dtype)
+    if x.dtype == torch.bfloat16:
+        return _bound(nbytes, ops, x.dtype)
+    res = _bound(nbytes, F32_TF32_PRODUCTS * ops, x.dtype, tf32=True)
+    res.update(flops=ops, alu_bound_ms=max(
+        nbytes / HBM_BYTES_PER_S, ops / ALU32_OPS_PER_S) * 1e3)
+    return res
 
 
 def time_flash(q, k, v, *, causal: bool, window, reps: int = 20) -> dict:
@@ -820,7 +848,10 @@ def time_ssd(x, dt, A, Bc, Cc, D, *, chunk: int, reps: int = 20) -> dict:
     kernels: it holds the host's time between the three launches where
     that exceeds the card's. Diagnostics beside it: ``graph_ms``, the
     device time of one call from a CUDA graph of it, replayed, and
-    ``phase_ms``, each phase's device time alone, the same way."""
+    ``phase_ms``, each phase's device time alone, the same way; and the
+    scratch states' traffic at the kernel's chunk, which the bound does not
+    count (written by phase 1, read and written by phase 2, read by phase
+    3: four passes), with its time at the HBM rate."""
     from repro_torch.kernels.ssd_scan.ops import phase_launches, ssd, \
         tile_plan
     from repro_torch.models.ssm import ssd_chunked
@@ -850,6 +881,9 @@ def time_ssd(x, dt, A, Bc, Cc, D, *, chunk: int, reps: int = 20) -> dict:
         lambda: ssd_chunked(x, dt, A, Bc, Cc, D, chunk=chunk), 2)
     res["library_ms"] = None
     res.update(ssd_bound(x, Bc, chunk))
+    res["scratch_traffic_bytes"] = 4 * res["plan"]["scratch_bytes"]
+    res["scratch_traffic_ms"] = \
+        res["scratch_traffic_bytes"] / HBM_BYTES_PER_S * 1e3
     return res
 
 

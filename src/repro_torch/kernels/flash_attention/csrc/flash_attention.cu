@@ -190,26 +190,6 @@ __device__ __forceinline__ void load_rows(float* dst, int stride,
   }
 }
 
-// x = hi + lo, each a tf32 value in an f32 register
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = hopper::to_tf32(x);
-  lo = hopper::to_tf32(x - __uint_as_float(hi));
-}
-
-// d[n] += a . b[n] over N accumulators, 3xTF32, term by term
-template <int N>
-__device__ __forceinline__ void mma3(float (*d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[N][2],
-                                     const uint32_t (&bl)[N][2]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) hopper::mma_m16n8k8_tf32(d[n], al, bh[n][0], bh[n][1]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) hopper::mma_m16n8k8_tf32(d[n], ah, bl[n][0], bl[n][1]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) hopper::mma_m16n8k8_tf32(d[n], ah, bh[n][0], bh[n][1]);
-}
-
 // S (16 x 64) = Q (16 x D) . K^T (D x 64). q: Q's row g (row g + 8 is
 // 8 rows on), k: K's key g of the tile, both at column 4 t. Each 16
 // columns of D are summed from zero on the tensor cores, whose adder
@@ -234,7 +214,7 @@ __device__ __forceinline__ void qk_f32(float (&sc)[8][4], const float* q,
 #pragma unroll
     for (int s = 0; s < 2; ++s)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) split(a[s][i], ah[s][i], al[s][i]);
+      for (int i = 0; i < 4; ++i) hopper::split_tf32(a[s][i], ah[s][i], al[s][i]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float4 kf[4];
@@ -252,10 +232,10 @@ __device__ __forceinline__ void qk_f32(float (&sc)[8][4], const float* q,
         uint32_t bh[4][2], bl[4][2];
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
-          split(s ? kf[n].z : kf[n].x, bh[n][0], bl[n][0]);
-          split(s ? kf[n].w : kf[n].y, bh[n][1], bl[n][1]);
+          hopper::split_tf32(s ? kf[n].z : kf[n].x, bh[n][0], bl[n][0]);
+          hopper::split_tf32(s ? kf[n].w : kf[n].y, bh[n][1], bl[n][1]);
         }
-        mma3<4>(part, ah[s], al[s], bh, bl);
+        hopper::mma3_tf32<4>(part, ah[s], al[s], bh, bl);
       }
 #pragma unroll
       for (int n = 0; n < 4; ++n)
@@ -290,7 +270,7 @@ __device__ __forceinline__ void pv_f32(float (&acc)[D / 8][4],
       const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
       uint32_t ah[4], al[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
+      for (int i = 0; i < 4; ++i) hopper::split_tf32(a[i], ah[i], al[i]);
       const float* vj = v + 8 * j * P::kV + 8 * n0;
       float b[NB][2];
 #pragma unroll
@@ -301,10 +281,10 @@ __device__ __forceinline__ void pv_f32(float (&acc)[D / 8][4],
       uint32_t bh[NB][2], bl[NB][2];
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        split(b[n][0], bh[n][0], bl[n][0]);
-        split(b[n][1], bh[n][1], bl[n][1]);
+        hopper::split_tf32(b[n][0], bh[n][0], bl[n][0]);
+        hopper::split_tf32(b[n][1], bh[n][1], bl[n][1]);
       }
-      mma3<NB>(part, ah, al, bh, bl);
+      hopper::mma3_tf32<NB>(part, ah, al, bh, bl);
     }
 #pragma unroll
     for (int n = 0; n < NB; ++n)

@@ -353,4 +353,29 @@ __device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x ~ hi + lo, each a tf32 value in an f32 register: hi = tf32(x), lo =
+// tf32(x - hi), which rounds off at most the last 2 bits of x - hi
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d[n] += a . b[n] over N accumulators as three TF32 products (3xTF32:
+// lo.hi, hi.lo, then hi.hi; lo.lo dropped), term by term, so that no mma
+// waits on the one before it unless N is 1
+template <int N>
+__device__ __forceinline__ void mma3_tf32(float (*d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[N][2],
+                                          const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_m16n8k8_tf32(d[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_m16n8k8_tf32(d[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_m16n8k8_tf32(d[n], ah, bh[n][0], bh[n][1]);
+}
+
 }  // namespace hopper

@@ -69,15 +69,19 @@
 // where |y| >= 16 (mamba2-130m's shape reaches 28.5) against a 5e-2
 // tolerance; two terms (2^-17) leave an error that, by its bound, can
 // still flip a few of the 12.6 M outputs there.
-// f32 inputs: every product an f32 FMA on the CUDA cores (4 x 4 register
-// tiles), IEEE expf, no TF32, so that f32 meets 2e-5.
+// f32 inputs: the same three phases, every product on the tensor cores as
+// mma.sync m16n8k8 (tf32 x tf32 -> f32) taken three times, hi.hi + hi.lo
+// + lo.hi of operands split as hi = tf32(v), lo = tf32(v - hi) (3xTF32),
+// so that f32 meets 2e-5 whatever torch's allow_tf32 says; exp in IEEE
+// expf. The f32 section below says how (namespace f32).
 //
 // Chunks: Q <= 128 steps (the wrapper halves Q where shared memory needs
 // it; the function does not depend on Q). Any S: the last chunk may be
 // short, its missing steps read as zero. The scratch states cost traffic
 // the bound does not count: B chunks H P N 4 bytes, written by phase 1,
 // read and written by phase 2, read by phase 3 (6.6 MB each pass at
-// hymba's shape, 50 MB at mamba2-130m's N 128).
+// hymba's shape, 50 MB at mamba2-130m's N 128, in either dtype: both keep
+// Q 128 there).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,21 +124,6 @@ __device__ __forceinline__ void chunk_cumsum(const float* dts, float a,
     if (lane * 4 + t < n) Ls[lane * 4 + t] = before + v[t];
 }
 
-// acc[r][q] += u[r] * v[q] for two float4 rows
-__device__ __forceinline__ void outer4(float (&acc)[4][4], float4 u,
-                                       float4 v) {
-  const float uu[4] = {u.x, u.y, u.z, u.w};
-  const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(uu[r], vv[q], acc[r][q]);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // the heads [h_lo, h_hi) of group g that a chunk-scan block owns: grid.y
 // is G x slices, a slice HS heads of one group
 __device__ __forceinline__ void block_heads(int H, int G, int HS, int& g,
@@ -145,73 +134,20 @@ __device__ __forceinline__ void block_heads(int H, int G, int HS, int& g,
   h_hi = min(h_lo + HS, (g + 1) * hpg);
 }
 
-// ------------------------------------------------ phase 1: chunk state, f32
-// shared memory (floats): x [Q][Pp], B * w [Q][Np], L, dt, w [Q]
-struct StateSmemF32 {
-  int Q, Pp, Np;
-  __host__ __device__ StateSmemF32(int q, int N, int P)
-      : Q(q), Pp(round_up(P, 4)), Np(round_up(N, 4)) {}
-  __host__ __device__ int bytes() const {
-    return 4 * (Q * Pp + Q * Np + 3 * Q);
-  }
-};
+// dt of one head over the chunk's steps, zero past len
+__device__ __forceinline__ void copy_dt(float* dst, const float* dt,
+                                        size_t row0, int H, int h, int n,
+                                        int len, int t, int nthr) {
+  for (int i = t; i < n; i += nthr)
+    hopper::cp_async4(dst + i, i < len ? dt + (row0 + i) * H + h : dt,
+                      i < len ? 4u : 0u);
+}
 
-// grid (chunks, H, B)
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_state_f32(const float* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ A, const float* __restrict__ Bm,
-                    float* __restrict__ states, float* __restrict__ decays,
-                    int S, int H, int P, int G, int N, int Q) {
-  extern __shared__ float4 smem4[];
-  const StateSmemF32 lay(Q, N, P);
-  float* xs = reinterpret_cast<float*>(smem4);   // [Q][Pp]
-  float* bw = xs + Q * lay.Pp;                   // [Q][Np]  B * w
-  float* Ls = bw + Q * lay.Np;                   // [Q]
-  float* dts = Ls + Q;                           // [Q]
-  float* ws = dts + Q;                           // [Q]      exp(L_last-L)*dt
-
-  const int tid = threadIdx.x;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
-  const int c0 = c * Q, len = min(Q, S - c0);
-  const int g = h / (H / G);
-  const size_t row0 = static_cast<size_t>(b) * S + c0;
-
-  for (int i = tid; i < Q; i += kThreads)
-    dts[i] = i < len ? dt[(row0 + i) * H + h] : 0.f;
-  for (int e = tid; e < Q * lay.Pp; e += kThreads) {
-    const int j = e / lay.Pp, p = e % lay.Pp;
-    xs[e] = j < len && p < P ? x[((row0 + j) * H + h) * P + p] : 0.f;
-  }
-  __syncthreads();
-  if (tid < 32) chunk_cumsum(dts, A[h], Ls, Q);
-  __syncthreads();
-  const float l_last = Ls[len - 1];
-  for (int j = tid; j < Q; j += kThreads)
-    ws[j] = j < len ? expf(l_last - Ls[j]) * dts[j] : 0.f;
-  __syncthreads();
-  for (int e = tid; e < Q * lay.Np; e += kThreads) {
-    const int j = e / lay.Np, n = e % lay.Np;
-    bw[e] = j < len && n < N ? Bm[((row0 + j) * G + g) * N + n] * ws[j]
-                             : 0.f;
-  }
-  __syncthreads();
-
-  // s[p][n] = sum_j x[j][p] (B * w)[j][n], 4 x 4 tiles a thread
-  float* out = states + ((static_cast<size_t>(b) * nc + c) * H + h) * P * N;
-  const int tn = lay.Np / 4;
-  for (int t = tid; t < lay.Pp / 4 * tn; t += kThreads) {
-    const int p0 = t / tn * 4, n0 = t % tn * 4;
-    float acc[4][4] = {};
-    for (int j = 0; j < len; ++j)
-      outer4(acc, ld4(xs + j * lay.Pp + p0), ld4(bw + j * lay.Np + n0));
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (p0 + r < P && n0 + q < N) out[(p0 + r) * N + n0 + q] = acc[r][q];
-  }
-  if (tid == 0)
-    decays[(static_cast<size_t>(b) * nc + c) * H + h] = expf(l_last);
+// stripe k (0 or 1) of warp w: w and nst - 1 - w, each stripe to the one
+// warp w = min(s, nst - 1 - s) (nst <= 8, so w < 4); -1 if none
+__device__ __forceinline__ int own_stripe(int w, int k, int nst) {
+  if (k == 0) return 2 * w <= nst - 1 ? w : -1;
+  return nst - 1 - w > w ? nst - 1 - w : -1;
 }
 
 // ---------------------------------------------- phase 2: state passing
@@ -245,128 +181,6 @@ ssd_state_pass(float* __restrict__ states, const float* __restrict__ decays,
     }
   }
   hout[(static_cast<size_t>(b) * H + h) * PN + e] = run;
-}
-
-// --------------------------------------------- phase 3: chunk scan, f32
-// shared memory (floats): C^T, B^T [Np][Qp], (C.B^T)^T and scores^T
-// [Qr][Qp] (j major), x [Qr][Pp], h_in^T [Np][Pp], L and dt [Qr]
-struct ScanSmemF32 {
-  int Qr, Qp, Pp, Np;
-  __host__ __device__ ScanSmemF32(int Q, int N, int P)
-      : Qr(round_up(Q, 4)), Qp(round_up(Q, 4) + 4), Pp(round_up(P, 4)),
-        Np(round_up(N, 4)) {}
-  __host__ __device__ int bytes() const {
-    return 4 * (2 * Np * Qp + 2 * Qr * Qp + Qr * Pp + Np * Pp + 2 * Qr);
-  }
-};
-
-// grid (chunks, G x slices, B)
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_scan_f32(const float* __restrict__ x, const float* __restrict__ dt,
-                   const float* __restrict__ A, const float* __restrict__ Bm,
-                   const float* __restrict__ Cm,
-                   const float* __restrict__ Dv,
-                   const float* __restrict__ states, float* __restrict__ y,
-                   int S, int H, int P, int G, int N, int Q, int HS) {
-  extern __shared__ float4 smem4[];
-  const ScanSmemF32 lay(Q, N, P);
-  const int Qp = lay.Qp, Pp = lay.Pp, Np = lay.Np, Qr = lay.Qr;
-  float* cT = reinterpret_cast<float*>(smem4);   // [Np][Qp]  C^T
-  float* bT = cT + Np * Qp;                      // [Np][Qp]  B^T
-  float* cbT = bT + Np * Qp;                     // [Qr][Qp]  cbT[j][i]
-  float* sT = cbT + Qr * Qp;                     // [Qr][Qp]  scores, j major
-  float* xs = sT + Qr * Qp;                      // [Qr][Pp]  x
-  float* hT = xs + Qr * Pp;                      // [Np][Pp]  h_in^T
-  float* Ls = hT + Np * Pp;                      // [Qr]
-  float* dts = Ls + Qr;                          // [Qr]
-
-  const int tid = threadIdx.x;
-  const int c = blockIdx.x, b = blockIdx.z, nc = gridDim.x;
-  int g, h_lo, h_hi;
-  block_heads(H, G, HS, g, h_lo, h_hi);
-  const int c0 = c * Q, len = min(Q, S - c0);
-  const size_t row0 = static_cast<size_t>(b) * S + c0;
-
-  for (int e = tid; e < Qr * Np; e += kThreads) {
-    const int i = e / Np, n = e % Np;
-    const bool in = i < len && n < N;
-    const size_t off = ((row0 + i) * G + g) * N + n;
-    cT[n * Qp + i] = in ? Cm[off] : 0.f;
-    bT[n * Qp + i] = in ? Bm[off] : 0.f;
-  }
-  __syncthreads();
-  // C . B^T once for every head of the block: the 4 x 4 tiles that reach
-  // the diagonal or below it
-  const int tq = Qr / 4;
-  for (int t = tid; t < tq * tq; t += kThreads) {
-    const int i0 = t / tq * 4, j0 = t % tq * 4;
-    if (j0 > i0) continue;
-    float acc[4][4] = {};
-    for (int n = 0; n < N; ++n)
-      outer4(acc, ld4(cT + n * Qp + i0), ld4(bT + n * Qp + j0));
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) cbT[(j0 + q) * Qp + i0 + r] = acc[r][q];
-  }
-
-  for (int h = h_lo; h < h_hi; ++h) {
-    __syncthreads();   // C.B^T is in; the last head's readers are done
-    for (int i = tid; i < Qr; i += kThreads)
-      dts[i] = i < len ? dt[(row0 + i) * H + h] : 0.f;
-    for (int e = tid; e < Qr * Pp; e += kThreads) {
-      const int j = e / Pp, p = e % Pp;
-      xs[e] = j < len && p < P ? x[((row0 + j) * H + h) * P + p] : 0.f;
-    }
-    const float* hin =
-        states + ((static_cast<size_t>(b) * nc + c) * H + h) * P * N;
-    for (int e = tid; e < Pp * Np; e += kThreads) {
-      const int p = e / Np, n = e % Np;
-      hT[n * Pp + p] = p < P && n < N ? hin[p * N + n] : 0.f;
-    }
-    __syncthreads();
-    if (tid < 32) chunk_cumsum(dts, A[h], Ls, Qr);
-    __syncthreads();
-    for (int e = tid; e < Qr * Qr; e += kThreads) {
-      const int j = e / Qr, i = e % Qr;
-      sT[j * Qp + i] = j <= i && i < len
-                           ? cbT[j * Qp + i] * expf(Ls[i] - Ls[j]) * dts[j]
-                           : 0.f;
-    }
-    __syncthreads();
-
-    // y = exp(L) (C . h_in^T) + scores . x + D x, 4 x 4 tiles of (i, p)
-    const float dh = Dv[h];
-    const int tp = Pp / 4;
-    for (int t = tid; t < tq * tp; t += kThreads) {
-      const int i0 = t / tp * 4, p0 = t % tp * 4;
-      if (i0 >= len) continue;
-      float acc[4][4] = {};
-      for (int n = 0; n < N; ++n)
-        outer4(acc, ld4(cT + n * Qp + i0), ld4(hT + n * Pp + p0));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float el = expf(Ls[i0 + r]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] *= el;
-      }
-      const int j_end = min(i0 + 4, len);
-      for (int j = 0; j < j_end; ++j)
-        outer4(acc, ld4(sT + j * Qp + i0), ld4(xs + j * Pp + p0));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + r;
-        if (i >= len) break;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = p0 + q;
-          if (p < P)
-            y[((row0 + i) * H + h) * P + p] =
-                acc[r][q] + xs[i * Pp + p] * dh;
-        }
-      }
-    }
-  }
 }
 
 // ------------------------------------------- the bf16 (tensor core) path
@@ -458,15 +272,6 @@ __device__ __forceinline__ void copy_rows(uint16_t* dst, int dst_stride,
           r < valid && c < cols ? src[r * src_stride + c] : 0;
     }
   }
-}
-
-// dt of one head over the chunk's steps, zero past len
-__device__ __forceinline__ void copy_dt(float* dst, const float* dt,
-                                        size_t row0, int H, int h, int n,
-                                        int len, int t, int nthr) {
-  for (int i = t; i < n; i += nthr)
-    hopper::cp_async4(dst + i, i < len ? dt + (row0 + i) * H + h : dt,
-                      i < len ? 4u : 0u);
 }
 
 // ------------------------------------------------ phase 1: chunk state
@@ -602,13 +407,6 @@ struct ScanSmem {
     return cb_bytes() + c_bytes() + max_of(c_bytes(), groups * group_bytes());
   }
 };
-
-// stripe k (0 or 1) of warp w: w and nst - 1 - w, each stripe to the one
-// warp w = min(s, nst - 1 - s) (nst <= 8, so w < 4); -1 if none
-__device__ __forceinline__ int own_stripe(int w, int k, int nst) {
-  if (k == 0) return 2 * w <= nst - 1 ? w : -1;
-  return nst - 1 - w > w ? nst - 1 - w : -1;
-}
 
 // a[i] for a run-time i in 0 .. 3, without indexing registers
 __device__ __forceinline__ float sel4(float a0, float a1, float a2,
@@ -878,10 +676,613 @@ ssd_chunk_scan_bf16(const uint16_t* __restrict__ x,
 
 }  // namespace tc
 
+// ------------------------------------------- the f32 (3xTF32) path
+// Every product of phases 1 and 3 runs as mma.sync m16n8k8 (tf32 x tf32
+// -> f32), three of them a product: hi.hi + hi.lo + lo.hi (lo.lo, 2^-22 of
+// the product, dropped), each operand split as hi = tf32(v), lo = tf32(v -
+// hi). A 3xTF32 product is three times the work of one: at mamba2-130m's
+// shape (B 2, S 4096, H 24, P 64, N 128) the scan's 8.26 GFLOP are 0.050
+// ms at the 495 TFLOP/s of the TF32 tensor cores against a 0.033 ms bytes
+// bound (on the CUDA cores' 67 TFLOP/s the same flops alone would take
+// 0.123 ms). What the design does:
+//   * Short sums through the tensor cores, whose adder truncates where the
+//     f32 ALU rounds: every product's contraction runs from zero 16 terms
+//     at a time (six mma into a zeroed accumulator; scores . x 8 terms,
+//     three mma, which keeps the chunk scan inside the 128 registers a
+//     thread that 16 warps a SM leave), and the runs are added in f32
+//     registers.
+//   * The contraction order is permuted the same way for both operands (a
+//     sum does not care), so that fragments come as few shared loads as
+//     possible. Where the contraction runs along a tile's rows (K-major:
+//     C, B and h_in over N), k-step 2 j takes columns 16 j + 4 t + {0, 1}
+//     and k-step 2 j + 1 columns 16 j + 4 t + {2, 3} (t = lane % 4): one
+//     float4 gives a lane its fragment of two k-steps; rows of stride
+//     16 mod 32 floats put a quarter-warp's float4s on distinct banks.
+//     Where it runs down the tile's columns (N-major: x and B over the
+//     chunk's steps), k-step j takes rows 8 j + 2 t as fragment column t and
+//     8 j + 2 t + 1 as column t + 4; rows of stride 4 mod 16 floats put the
+//     lanes' single loads on distinct banks. In the chunk scan this order
+//     makes C.B^T's accumulator of 8 keys, register for register, the A
+//     fragment of scores . x over those keys: the scores never leave the
+//     registers of the thread that applies their decay.
+//   * Phase 1, grid (chunks, H, B), 8 warps: x and B come by cp.async, L
+//     by a warp scan and w = exp(L_last - L) dt beside it; s = (x w)^T . B
+//     in 32 x 32 tiles a warp, both operands split as their fragments
+//     load, each A fragment used for 4 column tiles and each B fragment
+//     for 2 row tiles. Where the state has fewer tiles than there are
+//     warps (hymba's 64 x 16: two), the warps of a tile split its steps
+//     and their sums are added in a fixed order through shared memory.
+//   * Phase 3, grid (chunks, G x head slices, B), one block of 16 warps a
+//     SM, on one head at a time: a warp owns one 16-row stripe of the
+//     chunk and 32 of the 64 head-dim columns an item covers (P > 64 runs
+//     in items of 64 columns). Warps w, w + 4, w + 8, w + 12 share a SM
+//     sub-partition and hold stripes w and 7 - w, each twice (the
+//     triangle's short and long rows): every sub-partition the same work.
+//     (Each stripe's scores are decayed by its two warps. A stripe pair a
+//     warp over 16 columns, every warp the same work, decays them four
+//     times and took longer: the decay and the splits, not the mma, set
+//     the pace.)
+//     C.B^T is computed once a block and kept in fragment order in shared
+//     memory (a stripe's key tiles split between its two warps). Per item,
+//     in order: the incoming state's product C . h_in^T while x comes in
+//     by cp.async; then exp(L) times it, the scores and scores . x, y = ..
+//     + D x, while the next item's h_in and dt come in. Two barriers an
+//     item; the cumsum is one warp's work beside the others' C . h_in^T.
+//   * Splits: x's fragments in scores . x are read by up to 8 warps a
+//     column, so each thread splits the x values it copied, once, into hi
+//     and the exact rest v - hi (lo = tf32(rest) at load; x = hi + rest
+//     for the D x term). C and h_in are split as their fragments load (C's
+//     planes would not fit at N 128; h_in is read once an item by two
+//     warps a row), each fragment serving all four column tiles or both
+//     k-steps of a warp.
+//   Shared memory (ScanSmemF32): C.B^T 36,864 B at Q 128, C [Qk][N + pad],
+//   then a region that holds B for C.B^T and x's two planes after it,
+//   h_in [64][N + pad], dt twice and L: 222,720 B at mamba2's N 128,
+//   120,320 at hymba's N 16; one block a SM either way.
+namespace f32 {
+
+constexpr int kPass = 64;   // head-dim columns a chunk-scan item covers
+
+// row strides (floats) of f32 tiles in shared memory, as above: K-major
+// tiles (contraction along the row, float4 loads) 16 mod 32, N-major ones
+// (contraction down the columns, single loads) 4 mod 16
+__host__ __device__ constexpr int kmajor_stride(int n) {
+  return round_up(n, 16) % 32 == 0 ? round_up(n, 16) + 16 : round_up(n, 16);
+}
+__host__ __device__ constexpr int nmajor_stride(int n) {
+  return round_up(n, 16) + 4;
+}
+
+constexpr int kScanThreads = 512;   // the chunk scan's 16 warps
+
+// phase 1: x [Qk][P + pad], B [Qk][N + pad] (whose room, once they are
+// read, takes the warps' partial sums where kparts > 1: 8 warps x 32
+// accumulators x 32 lanes), then L, dt, w [Qk]. kparts: the warps that
+// share a 32 x 32 tile of the state: 8, 4 or 2 where it has 1, 2 or 3-4
+// tiles.
+struct StateSmemF32 {
+  int Qk, xst, bst, kparts;
+  __host__ __device__ StateSmemF32(int Q, int N, int P)
+      : Qk(round_up(Q, 16)), xst(nmajor_stride(P)), bst(nmajor_stride(N)),
+        kparts(0) {
+    const int tiles = (P + 31) / 32 * ((N + 31) / 32);
+    kparts = tiles == 1 ? 8 : tiles == 2 ? 4 : tiles <= 4 ? 2 : 1;
+  }
+  __host__ __device__ int tile_floats() const {
+    return max_of(Qk * (xst + bst), kparts > 1 ? 8 * 32 * 32 : 0);
+  }
+  __host__ __device__ int bytes() const {
+    return 4 * (tile_floats() + 3 * Qk);
+  }
+};
+
+// phase 3: C.B^T in fragment order (as tc::ScanSmem), C [Qk][cst], the
+// region (B [Qk][cst], then x's hi [Qk][xst] and its rest after it),
+// h_in [kPass][cst], dt [2][Qk], L [Qk]
+struct ScanSmemF32 {
+  int Qk, nst, cst, xst;
+  __host__ __device__ ScanSmemF32(int Q, int N)
+      : Qk(round_up(Q, 16)), nst(round_up(Q, 16) / 16),
+        cst(kmajor_stride(N)), xst(nmajor_stride(kPass)) {}
+  __host__ __device__ int cb_bytes() const { return nst * (nst + 1) * 512; }
+  __host__ __device__ int region_floats() const {
+    return max_of(Qk * cst, 2 * Qk * xst);
+  }
+  __host__ __device__ int bytes() const {
+    return cb_bytes() +
+           4 * (Qk * cst + region_floats() + kPass * cst + 3 * Qk);
+  }
+};
+
+// Rows [0, rows) of ``cols`` floats into shared memory (row r at dst + r
+// dst_stride), row r read at src + r src_stride, rows >= valid zero; by
+// threads t, t + nthr, .. of the caller, as cp.async copies that the
+// caller commits and waits for: 16 bytes each with ``vec`` (cols % 4 ==
+// 0, src and its rows 16-byte aligned), else 4. Columns past cols are not
+// written.
+__device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
+                                          const float* src,
+                                          size_t src_stride, int rows,
+                                          int valid, int cols, bool vec,
+                                          int t, int nthr) {
+  if (vec) {
+    const int per = cols / 4;
+    for (int e = t; e < rows * per; e += nthr) {
+      const int r = e / per, c = 4 * (e % per);
+      hopper::cp_async16(dst + r * dst_stride + c,
+                         r < valid ? src + r * src_stride + c : src,
+                         r < valid ? 16u : 0u);
+    }
+  } else {
+    for (int e = t; e < rows * cols; e += nthr) {
+      const int r = e / cols, c = e % cols;
+      hopper::cp_async4(dst + r * dst_stride + c,
+                        r < valid ? src + r * src_stride + c : src,
+                        r < valid ? 4u : 0u);
+    }
+  }
+}
+
+// The values copy_rows copied for thread t, once they have landed (the
+// same arguments): each v becomes hi = tf32(v) in place, and the exact
+// rest v - hi goes to the same place in ``rest``.
+__device__ __forceinline__ void split_rows(float* dst, float* rest,
+                                           int dst_stride, int rows,
+                                           int cols, bool vec, int t,
+                                           int nthr) {
+  auto hi = [](float v) { return __uint_as_float(hopper::to_tf32(v)); };
+  if (vec) {
+    const int per = cols / 4;
+    for (int e = t; e < rows * per; e += nthr) {
+      const int off = e / per * dst_stride + 4 * (e % per);
+      const float4 v = *reinterpret_cast<const float4*>(dst + off);
+      const float4 h = make_float4(hi(v.x), hi(v.y), hi(v.z), hi(v.w));
+      *reinterpret_cast<float4*>(dst + off) = h;
+      *reinterpret_cast<float4*>(rest + off) =
+          make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
+    }
+  } else {
+    for (int e = t; e < rows * cols; e += nthr) {
+      const int off = e / cols * dst_stride + e % cols;
+      const float v = dst[off], h = hi(v);
+      dst[off] = h;
+      rest[off] = v - h;
+    }
+  }
+}
+
+// the A fragment of k-step ks (0 or 1) from float4s of a K-major tile's
+// rows g and g + 8 (see above), split
+__device__ __forceinline__ void split_a(const float4& r0, const float4& r1,
+                                        int ks, uint32_t (&ah)[4],
+                                        uint32_t (&al)[4]) {
+  const float a[4] = {ks ? r0.z : r0.x, ks ? r1.z : r1.x,
+                      ks ? r0.w : r0.y, ks ? r1.w : r1.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hopper::split_tf32(a[i], ah[i], al[i]);
+}
+
+// ------------------------------------------------ phase 1: chunk state
+// grid (chunks, H, B). ``vec``: bit 0, x's rows can be copied 16 bytes at
+// a time; bit 1, B's.
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const float* __restrict__ Bm,
+                float* __restrict__ states, float* __restrict__ decays,
+                int S, int H, int P, int G, int N, int Q, int vec) {
+  extern __shared__ float4 smem4[];
+  const StateSmemF32 lay(Q, N, P);
+  float* xs = reinterpret_cast<float*>(smem4);   // [Qk][xst]
+  float* bs = xs + lay.Qk * lay.xst;             // [Qk][bst]
+  float* Ls = xs + lay.tile_floats();            // [Qk]
+  float* dts = Ls + lay.Qk;                      // [Qk]
+  float* ws = dts + lay.Qk;                      // [Qk] exp(L_last - L) dt
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int c0 = c * Q, len = min(Q, S - c0);
+  const int grp = h / (H / G);
+  const size_t row0 = static_cast<size_t>(b) * S + c0;
+
+  copy_dt(dts, dt, row0, H, h, lay.Qk, len, tid, kThreads);
+  copy_rows(xs, lay.xst, x + (row0 * H + h) * P, static_cast<size_t>(H) * P,
+            lay.Qk, len, P, vec & 1, tid, kThreads);
+  copy_rows(bs, lay.bst, Bm + (row0 * G + grp) * N,
+            static_cast<size_t>(G) * N, lay.Qk, len, N, vec & 2, tid,
+            kThreads);
+  hopper::cp_async_wait_all();
+  __syncthreads();
+  if (warp == 0) {
+    chunk_cumsum(dts, A[h], Ls, lay.Qk);
+    __syncwarp();
+    const float l_last = Ls[len - 1];
+    for (int j = lane; j < lay.Qk; j += 32)
+      ws[j] = j < len ? expf(l_last - Ls[j]) * dts[j] : 0.f;
+  }
+  __syncthreads();
+
+  // s[p][n] = sum_j (x w)[j][p] B[j][n] in 32 x 32 tiles, rows p0 + 16 mt
+  // + .., columns n0 + 8 nt + ..: one warp a tile, or, where there are at
+  // most 4 tiles, kparts warps a tile, each over its own steps, their sums
+  // added in a fixed order
+  float* out = states + ((static_cast<size_t>(b) * nc + c) * H + h) * P * N;
+  const int ntn = (N + 31) / 32, tiles = (P + 31) / 32 * ntn;
+  const int kparts = lay.kparts, span = round_up(lay.Qk / kparts, 16);
+  auto tile = [&](int wt, int j_lo, int j_hi, float (&acc)[2][4][4]) {
+    const int p0 = wt / ntn * 32, n0 = wt % ntn * 32;
+    const bool two = p0 + 16 < P;   // the second 16-row tile holds rows
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    for (int j0 = j_lo; j0 < min(len, j_hi); j0 += 16) {
+      float part[2][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int j = j0 + 8 * ks + 2 * t;   // steps j (column t), j + 1
+        const float w0 = ws[j], w1 = ws[j + 1];
+        const float* br = bs + j * lay.bst + n0 + g;
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const bool in = n0 + 8 * nt < N;
+          hopper::split_tf32(in ? br[8 * nt] : 0.f, bh[nt][0], bl[nt][0]);
+          hopper::split_tf32(in ? br[lay.bst + 8 * nt] : 0.f, bh[nt][1],
+                             bl[nt][1]);
+        }
+        const float* xr = xs + j * lay.xst + p0 + g;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt == 1 && !two) break;
+          const float a[4] = {xr[16 * mt] * w0, xr[16 * mt + 8] * w0,
+                              xr[lay.xst + 16 * mt] * w1,
+                              xr[lay.xst + 16 * mt + 8] * w1};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) hopper::split_tf32(a[i], ah[i], al[i]);
+          hopper::mma3_tf32<4>(part[mt], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+    }
+  };
+  auto store = [&](int wt, const float (&acc)[2][4][4]) {
+    const int p0 = wt / ntn * 32, n0 = wt % ntn * 32;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = p0 + 16 * mt + g + (e < 2 ? 0 : 8);
+          const int n = n0 + 8 * nt + 2 * t + (e & 1);
+          if (p < P && n < N) out[p * N + n] = acc[mt][nt][e];
+        }
+  };
+  float acc[2][4][4];
+  if (kparts == 1) {
+    for (int wt = warp; wt < tiles; wt += kThreads / 32) {
+      tile(wt, 0, lay.Qk, acc);
+      store(wt, acc);
+    }
+  } else {
+    const int wt = warp / kparts, kp = warp % kparts;
+    const bool busy = wt < tiles;
+    if (busy) tile(wt, kp * span, (kp + 1) * span, acc);
+    __syncthreads();   // x and B are read: their room takes the parts
+    float* parts = xs;   // [warp][32 accumulators][32 lanes]
+    if (busy && kp > 0) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        parts[(warp * 32 + r) * 32 + lane] = acc[r / 16][r / 4 % 4][r % 4];
+    }
+    __syncthreads();
+    if (busy && kp == 0) {
+      for (int q = 1; q < kparts; ++q) {
+#pragma unroll
+        for (int r = 0; r < 32; ++r)
+          acc[r / 16][r / 4 % 4][r % 4] +=
+              parts[((warp + q) * 32 + r) * 32 + lane];
+      }
+      store(wt, acc);
+    }
+  }
+  if (tid == 0)
+    decays[(static_cast<size_t>(b) * nc + c) * H + h] = expf(Ls[len - 1]);
+}
+
+// ------------------------------------------------- phase 3: chunk scan
+// grid (chunks, G x slices, B), 16 warps. ``vec``: bit 0, x's rows can be
+// copied 16 bytes at a time; bit 1, B's and C's; bit 2, h_in's (N % 4 ==
+// 0); bit 3, y can be written two floats at a time (P even, y 8-byte
+// aligned).
+__global__ void __launch_bounds__(kScanThreads, 1)
+ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const float* __restrict__ Bm,
+               const float* __restrict__ Cm, const float* __restrict__ Dv,
+               const float* __restrict__ states, float* __restrict__ y,
+               int S, int H, int P, int G, int N, int Q, int HS, int vec) {
+  extern __shared__ float4 smem4[];
+  const ScanSmemF32 lay(Q, N);
+  const int Qk = lay.Qk, cst = lay.cst, xst = lay.xst;
+  float4* cbf = smem4;                                    // C.B^T
+  float* cs = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) + lay.cb_bytes());   // C [Qk][cst]
+  float* bs = cs + Qk * cst;         // B [Qk][cst], at first
+  float* xs = bs;                    // then x's hi [Qk][xst]
+  float* xr = xs + Qk * xst;         // and its rest
+  float* hs = bs + lay.region_floats();   // h_in [kPass][cst]
+  float* dts = hs + kPass * cst;     // [2][Qk], by item parity
+  float* Ls = dts + 2 * Qk;          // [Qk]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // this warp's stripe (rows 16 st ..; -1: none) and columns pw .. pw + 31
+  // of an item; warps w, w + 4, w + 8, w + 12 share a SM sub-partition and
+  // hold stripes w, 7 - w (twice): the same work for each sub-partition
+  const int st = own_stripe(warp % 4, warp / 4 % 2, lay.nst);
+  const int pw = 32 * (warp / 8);
+  const int c = blockIdx.x, b = blockIdx.z, nc = gridDim.x;
+  int grp, h_lo, h_hi;
+  block_heads(H, G, HS, grp, h_lo, h_hi);
+  const int c0 = c * Q, len = min(Q, S - c0);
+  const bool on = st >= 0 && 16 * st < len;   // the stripe holds rows
+  const size_t row0 = static_cast<size_t>(b) * S + c0;
+  const int Nk = round_up(N, 16);
+  const int passes = (P + kPass - 1) / kPass;
+  const int items = (h_hi - h_lo) * passes;
+  const bool xvec = vec & 1, hvec = vec & 4, y2 = vec & 8;
+
+  // the item's h_in rows (the state entering this chunk, P x N, rows of
+  // the item's columns) and its head's dt, into buffer it & 1
+  auto fetch_state = [&](int it) {
+    const int h = h_lo + it / passes, p0 = it % passes * kPass;
+    copy_rows(hs, cst,
+              states + ((static_cast<size_t>(b) * nc + c) * H + h) * P * N +
+                  static_cast<size_t>(p0) * N,
+              N, kPass, min(kPass, P - p0), N, hvec, tid, kScanThreads);
+    copy_dt(dts + (it & 1) * Qk, dt, row0, H, h, Qk, len, tid,
+            kScanThreads);
+    hopper::cp_async_commit();
+  };
+
+  // the contraction's pad, columns [N, Nk) of C, B and h_in: zero, and
+  // never written by the copies
+  for (int e = tid; e < (2 * Qk + kPass) * (Nk - N); e += kScanThreads) {
+    const int r = e / (Nk - N), col = N + e % (Nk - N);
+    float* row = r < Qk ? cs + r * cst
+                        : r < 2 * Qk ? bs + (r - Qk) * cst
+                                     : hs + (r - 2 * Qk) * cst;
+    row[col] = 0.f;
+  }
+  copy_rows(cs, cst, Cm + (row0 * G + grp) * N, static_cast<size_t>(G) * N,
+            Qk, len, N, vec & 2, tid, kScanThreads);
+  copy_rows(bs, cst, Bm + (row0 * G + grp) * N, static_cast<size_t>(G) * N,
+            Qk, len, N, vec & 2, tid, kScanThreads);
+  hopper::cp_async_commit();
+  fetch_state(0);
+  hopper::cp_async_wait<1>();
+  __syncthreads();
+
+  // C . B^T once for every head of the block: stripe st (rows 16 st ..)
+  // against key tiles 0 .. 2 st + 1, the first st + 1 of them by the warp
+  // of columns 0 .. 31, the rest by the warp of columns 32 ..; 4 key
+  // tiles at a time
+  if (st >= 0) {
+    const int lo = pw ? st + 1 : 0, hi = lo + st + 1;
+    const float* cr = cs + (16 * st + g) * cst + 4 * t;
+#pragma unroll 1
+    for (int j0 = lo; j0 < hi; j0 += 4) {
+      float acc[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 1
+      for (int kb = 0; kb < Nk; kb += 16) {
+        const float4 c0v = *reinterpret_cast<const float4*>(cr + kb);
+        const float4 c1v = *reinterpret_cast<const float4*>(cr + 8 * cst + kb);
+        float4 bv[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          bv[n] = j0 + n < hi
+                      ? *reinterpret_cast<const float4*>(
+                            bs + (8 * (j0 + n) + g) * cst + kb + 4 * t)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        float part[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+          split_a(c0v, c1v, ks, ah, al);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            hopper::split_tf32(ks ? bv[n].z : bv[n].x, bh[n][0], bl[n][0]);
+            hopper::split_tf32(ks ? bv[n].w : bv[n].y, bh[n][1], bl[n][1]);
+          }
+          hopper::mma3_tf32<4>(part, ah, al, bh, bl);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        if (j0 + n < hi)
+          cbf[st * (st + 1) * 32 + (j0 + n) * 32 + lane] =
+              make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    }
+  }
+
+#pragma unroll 1
+  for (int it = 0; it < items; ++it) {
+    const int h = h_lo + it / passes, p0 = it % passes * kPass;
+    const int pc = min(kPass, P - p0);   // the item's columns
+    const bool busy = on && pw < pc;     // this warp has some of them
+    hopper::cp_async_wait<0>();          // h_in and dt of item it
+    __syncthreads();   // .. are in; x, L and dt of item it - 1 are read
+    copy_rows(xs, xst, x + (row0 * H + h) * P + p0,
+              static_cast<size_t>(H) * P, Qk, len, pc, xvec, tid,
+              kScanThreads);
+    hopper::cp_async_commit();
+    const float* dtc = dts + (it & 1) * Qk;
+    if (warp == 0) chunk_cumsum(dtc, A[h], Ls, Qk);
+
+    // the incoming state: C . h_in^T, rows of the stripe, columns pw ..
+    // pw + 31 of the item
+    float acc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    if (busy) {
+      const float* cr = cs + (16 * st + g) * cst + 4 * t;
+      const float* hr = hs + (pw + g) * cst + 4 * t;
+#pragma unroll 1
+      for (int kb = 0; kb < Nk; kb += 16) {
+        const float4 c0v = *reinterpret_cast<const float4*>(cr + kb);
+        const float4 c1v = *reinterpret_cast<const float4*>(cr + 8 * cst + kb);
+        float4 hv[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          hv[n] = *reinterpret_cast<const float4*>(hr + 8 * n * cst + kb);
+        float part[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+          split_a(c0v, c1v, ks, ah, al);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            hopper::split_tf32(ks ? hv[n].z : hv[n].x, bh[n][0], bl[n][0]);
+            hopper::split_tf32(ks ? hv[n].w : hv[n].y, bh[n][1], bl[n][1]);
+          }
+          hopper::mma3_tf32<4>(part, ah, al, bh, bl);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+      }
+    }
+
+    hopper::cp_async_wait<0>();   // x of item it, split once
+    split_rows(xs, xr, xst, Qk, pc, xvec, tid, kScanThreads);
+    __syncthreads();   // x, L and C.B^T are in; h_in is read
+    if (it + 1 < items) fetch_state(it + 1);
+    if (!busy) continue;
+
+    // exp(L) on the incoming state's part, row by row
+    const int i0 = 16 * st + g, i1 = i0 + 8;   // this thread's rows
+    const float L0 = Ls[i0], L1 = Ls[i1];
+    const float el0 = expf(L0), el1 = expf(L1);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      acc[n][0] *= el0;
+      acc[n][1] *= el0;
+      acc[n][2] *= el1;
+      acc[n][3] *= el1;
+    }
+
+    // scores . x over keys 0 .. 16 st + 15, one tile of 8 keys at a time
+    // (each tile's sum from zero, added in f32); each key tile's C.B^T
+    // accumulator, decayed and selected below the diagonal, is the A
+    // fragment in place
+    const float4* cb = cbf + st * (st + 1) * 32 + lane;
+#pragma unroll 1
+    for (int jt = 0; jt < 2 * st + 2; ++jt) {
+      const int j = 8 * jt + 2 * t;   // keys j (column t), j + 1 (t + 4)
+      uint32_t bh[4][2], bl[4][2];
+      const int xo = j * xst + pw + g;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          bh[n][r] = __float_as_uint(xs[xo + r * xst + 8 * n]);
+          bl[n][r] = hopper::to_tf32(xr[xo + r * xst + 8 * n]);
+        }
+      }
+      const float Lj0 = Ls[j], Lj1 = Ls[j + 1];
+      const float d0 = dtc[j], d1 = dtc[j + 1];
+      const float4 s = cb[jt * 32];
+      // (i0, j), (i1, j), (i0, j + 1), (i1, j + 1)
+      const float a[4] = {j <= i0 ? s.x * expf(L0 - Lj0) * d0 : 0.f,
+                          j <= i1 ? s.z * expf(L1 - Lj0) * d0 : 0.f,
+                          j + 1 <= i0 ? s.y * expf(L0 - Lj1) * d1 : 0.f,
+                          j + 1 <= i1 ? s.w * expf(L1 - Lj1) * d1 : 0.f};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hopper::split_tf32(a[i], ah[i], al[i]);
+      float part[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+      hopper::mma3_tf32<4>(part, ah, al, bh, bl);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+    }
+
+    // y = .. + D x (x = hi + rest): rows i0, i1, columns 2 t, 2 t + 1 of
+    // each 8-column tile
+    const float dh = Dv[h];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r ? i1 : i0;
+      if (i >= len) continue;
+      float* yr = y + ((row0 + i) * H + h) * P + p0;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = pw + 8 * n + 2 * t;
+        if (col >= pc) continue;
+        const int xo = i * xst + col;
+        const float v0 = acc[n][2 * r] + (xs[xo] + xr[xo]) * dh;
+        const float v1 = acc[n][2 * r + 1] + (xs[xo + 1] + xr[xo + 1]) * dh;
+        if (y2 && col + 1 < pc) {
+          *reinterpret_cast<float2*>(yr + col) = make_float2(v0, v1);
+        } else {
+          yr[col] = v0;
+          if (col + 1 < pc) yr[col + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace f32
+
 // whether the rows of a bf16 tensor whose innermost dim is ``n`` can move
 // 16 bytes at a time: n % 8 == 0 and the data 16-byte aligned
 bool rows16(const void* p, int n) {
   return n % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the same for an f32 tensor: n % 4 == 0 and the data 16-byte aligned
+bool rows16_f32(const void* p, int n) {
+  return n % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 bool bad_shape(int B, int S, int H, int P, int G, int N, int Q) {
@@ -910,9 +1311,9 @@ extern "C" {
 // dtype 0 f32 or 1 bf16, at chunk Q, state N, head dim P; -1 for another
 // phase or dtype. ops.py mirrors it.
 int ssd_smem_bytes(int phase, int dtype, int Q, int N, int P, int groups) {
-  if (phase == 1 && dtype == 0) return StateSmemF32(Q, N, P).bytes();
+  if (phase == 1 && dtype == 0) return f32::StateSmemF32(Q, N, P).bytes();
   if (phase == 1 && dtype == 1) return tc::StateSmem(Q, N, P).bytes();
-  if (phase == 3 && dtype == 0) return ScanSmemF32(Q, N, P).bytes();
+  if (phase == 3 && dtype == 0) return f32::ScanSmemF32(Q, N).bytes();
   if (phase == 3 && dtype == 1) return tc::ScanSmem(Q, N, P, groups).bytes();
   return -1;
 }
@@ -934,15 +1335,15 @@ int ssd_chunk_state_launch(const void* x, const void* dt, const void* A,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    const int bytes = StateSmemF32(Q, N, P).bytes();
+    const int bytes = f32::StateSmemF32(Q, N, P).bytes();
     static int allowed = 0;
-    err = allow_smem(ssd_chunk_state_f32, bytes, allowed);
+    err = allow_smem(f32::ssd_chunk_state, bytes, allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ssd_chunk_state_f32<<<grid, kThreads, bytes, st>>>(
+    f32::ssd_chunk_state<<<grid, kThreads, bytes, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dt),
         static_cast<const float*>(A), static_cast<const float*>(Bm),
         static_cast<float*>(states), static_cast<float*>(decays), S, H, P, G,
-        N, Q);
+        N, Q, rows16_f32(x, P) | rows16_f32(Bm, N) << 1);
   } else if (dtype == 1) {
     const int bytes = tc::StateSmem(Q, N, P).bytes();
     static int allowed = 0;
@@ -975,8 +1376,8 @@ int ssd_state_pass_launch(void* states, const void* decays, void* hout,
 }
 
 // phase 3: y (B, S, H, P) in x's dtype; a block owns HS heads of a group,
-// and in bf16 runs ``groups`` (1 to 4) warp groups (f32: one 256-thread
-// block, ``groups`` must be 1)
+// and in bf16 runs ``groups`` (1 to 4) warp groups (f32: 16 warps on one
+// head at a time, ``groups`` must be 1)
 int ssd_chunk_scan_launch(const void* x, const void* dt, const void* A,
                           const void* Bm, const void* Cm, const void* Dv,
                           const void* states, void* y, int dtype, int B,
@@ -991,16 +1392,21 @@ int ssd_chunk_scan_launch(const void* x, const void* dt, const void* A,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    const int bytes = ScanSmemF32(Q, N, P).bytes();
+    const int bytes = f32::ScanSmemF32(Q, N).bytes();
+    const int vec = rows16_f32(x, P) |
+                    (rows16_f32(Bm, N) && rows16_f32(Cm, N)) << 1 |
+                    rows16_f32(states, N) << 2 |
+                    (P % 2 == 0 && reinterpret_cast<uintptr_t>(y) % 8 == 0)
+                        << 3;
     static int allowed = 0;
-    err = allow_smem(ssd_chunk_scan_f32, bytes, allowed);
+    err = allow_smem(f32::ssd_chunk_scan, bytes, allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ssd_chunk_scan_f32<<<grid, kThreads, bytes, st>>>(
+    f32::ssd_chunk_scan<<<grid, f32::kScanThreads, bytes, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dt),
         static_cast<const float*>(A), static_cast<const float*>(Bm),
         static_cast<const float*>(Cm), static_cast<const float*>(Dv),
         static_cast<const float*>(states), static_cast<float*>(y), S, H, P,
-        G, N, Q, HS);
+        G, N, Q, HS, vec);
   } else if (dtype == 1) {
     const int bytes = tc::ScanSmem(Q, N, P, groups).bytes();
     static int allowed = 0;

@@ -29,12 +29,36 @@ MAX_CHUNK = 128              # the kernels' longest chunk (csrc: kQMax)
 MAX_SMEM_BYTES = 232_448     # the H100's opt-in shared memory per block
 SMS = 132                    # the H100's streaming multiprocessors
 MAX_GROUPS = 4               # warp groups a bf16 chunk-scan block may hold
+F32_PASS = 64                # head-dim columns an f32 chunk-scan item covers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None   # the loaded library, once per process
 
 
 def _up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def _kmajor(n: int) -> int:
+    """Row stride (floats) of an f32 tile read along its rows (csrc:
+    f32::kmajor_stride)."""
+    s = _up(n, 16)
+    return s + 16 if s % 32 == 0 else s
+
+
+def _nmajor(n: int) -> int:
+    """Row stride (floats) of an f32 tile read down its columns (csrc:
+    f32::nmajor_stride)."""
+    return _up(n, 16) + 4
+
+
+def _f32_scan_bytes(q: int, n: int) -> int:
+    # C.B^T fragments, C, a region for B and then x's hi and rest planes,
+    # h_in, dt twice and L
+    qk = _up(q, 16)
+    nst, cst = qk // 16, _kmajor(n)
+    region = max(qk * cst, 2 * qk * _nmajor(F32_PASS))
+    return 512 * nst * (nst + 1) + 4 * (qk * cst + region + F32_PASS * cst
+                                        + 3 * qk)
 
 
 def smem_bytes(phase: int, dtype: torch.dtype, q: int, n: int, p: int,
@@ -46,12 +70,12 @@ def smem_bytes(phase: int, dtype: torch.dtype, q: int, n: int, p: int,
     if phase not in (1, 3):
         raise ValueError(f"phase {phase} takes no shared memory")
     if dtype == torch.float32:
-        if phase == 1:     # x, B * w; L, dt, w
-            return 4 * (q * _up(p, 4) + q * _up(n, 4) + 3 * q)
-        # C^T, B^T, C.B^T, scores, x, h^T; L, dt
-        qr, pp, np_ = _up(q, 4), _up(p, 4), _up(n, 4)
-        qp = qr + 4
-        return 4 * (2 * np_ * qp + 2 * qr * qp + qr * pp + np_ * pp + 2 * qr)
+        if phase == 1:     # x and B, or the warps' partial sums; L, dt, w
+            qk = _up(q, 16)
+            tiles = -(-p // 32) * -(-n // 32)
+            parts = 8 * 32 * 32 if tiles <= 4 else 0
+            return 4 * (max(qk * (_nmajor(p) + _nmajor(n)), parts) + 3 * qk)
+        return _f32_scan_bytes(q, n)
     qk, nk, pk = _up(q, 16), _up(n, 16), _up(p, 16)
     if phase == 1:         # L, dt, w; (x w)'s three terms, B (bf16)
         return 12 * qk + 2 * qk * (3 * (pk + 8) + nk + 8)
@@ -70,11 +94,11 @@ def tile_plan(B: int, S: int, H: int, P: int, G: int, N: int,
     would not fit), the number of chunks, the heads a chunk-scan block owns
     (it computes C.B^T once for them: more heads, fewer products; fewer,
     more blocks in flight) and, in bf16, the warp groups that work on them
-    side by side, each on its own head (as many as fit, up to 4). A bf16
-    block holds many warps, so the plan aims at one block per SM; an f32
-    block holds 8, so at two. Also each phase's shared memory and the
-    scratch bytes (the chunks' states and decays, f32). Raises if no chunk
-    fits. Cached: do not modify the dict it returns."""
+    side by side, each on its own head (as many as fit, up to 4; an f32
+    block is 16 warps on one head at a time). A block holds many warps, so
+    the plan aims at one block per SM. Also each phase's shared memory and
+    the scratch bytes (the chunks' states and decays, f32). Raises if no
+    chunk fits. Cached: do not modify the dict it returns."""
     q = min(chunk, MAX_CHUNK)
     while max(smem_bytes(ph, dtype, q, N, P) for ph in (1, 3)) \
             > MAX_SMEM_BYTES:
@@ -85,11 +109,7 @@ def tile_plan(B: int, S: int, H: int, P: int, G: int, N: int,
     nc = -(-S // q)
     hpg = H // G
     pairs = B * nc * G            # (batch, chunk, group): C.B^T's
-    if dtype == torch.float32:
-        slices = -(-2 * SMS // pairs)
-    else:
-        slices = SMS // pairs
-    slices = min(hpg, max(1, slices))
+    slices = min(hpg, max(1, SMS // pairs))
     heads = -(-hpg // slices)
     groups = 1
     if dtype != torch.float32:

@@ -191,8 +191,37 @@ def test_wrapper_halves_the_chunk_and_refuses_bad_input():
 # bf16: the scores enter scores.x and h_in enters C . h_in^T as three bf16
 # terms, hi + mid + lo (which hold an f32's 24 bits), so the one rounding
 # point is y's own, to bf16.
+# f32 (``tf32_terms`` 3): each of the four products (x^T . (B w), C . B^T,
+# C . h_in^T, scores . x) is taken as three TF32 products, hi.hi + hi.lo +
+# lo.hi, of operands split as hi = tf32(v), lo = tf32(v - hi), lo.lo
+# dropped; tf32(v) rounds to 10 mantissa bits, to nearest with ties away
+# from zero (the kernel's hopper::to_tf32), here by the same bit masking
+# (as tests/test_torch_flash_attention.py emulates the f32 flash kernel).
+# ``tf32_terms`` 1: hi.hi alone, a single TF32 product. The kernel also
+# sums each product 16 terms at a time (scores . x 8) on the tensor cores,
+# whose adder truncates; that is not emulated (chip_smoke.py's f32 edge
+# cases hold it).
 def _bf16(t):
     return t.to(torch.bfloat16).float()
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor,
+             tf32_terms: int = 0) -> torch.Tensor:
+    """einsum(eq, a, b): exact f32 (``tf32_terms`` 0), from one TF32
+    product (1), or from three, hi.hi + hi.lo + lo.hi (3)."""
+    if not tf32_terms:
+        return torch.einsum(eq, a, b)
+    ah, bh = _tf32(a), _tf32(b)
+    if tf32_terms == 1:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, ah, bh) + (torch.einsum(eq, ah, bl)
+                                       + torch.einsum(eq, al, bh))
 
 
 def _split3(t):
@@ -201,7 +230,7 @@ def _split3(t):
     return hi + mid + _bf16(t - hi - mid)
 
 
-def _emulate_kernel(x, dt, A, Bc, Cc, D, chunk, round_y=True):
+def _emulate_kernel(x, dt, A, Bc, Cc, D, chunk, round_y=True, tf32_terms=0):
     B, S, H, P = x.shape
     G, N = Bc.shape[2], Bc.shape[3]
     chunk = min(chunk, S)
@@ -222,7 +251,7 @@ def _emulate_kernel(x, dt, A, Bc, Cc, D, chunk, round_y=True):
     L = torch.cumsum(dts * A.float(), dim=2)            # (B, nc, q, H)
     # 1. chunk state
     w = torch.exp(L[:, :, -1:] - L) * dts
-    own = torch.einsum("bcjhp,bcjhn->bchpn", xs, Bh * w[..., None])
+    own = _product("bcjhp,bcjhn->bchpn", xs * w[..., None], Bh, tf32_terms)
     decay = torch.exp(L[:, :, -1])                      # (B, nc, H)
     # 2. state passing
     h = torch.zeros((B, H, P, N))
@@ -232,7 +261,8 @@ def _emulate_kernel(x, dt, A, Bc, Cc, D, chunk, round_y=True):
         h = decay[:, c, :, None, None] * h + own[:, c]
     h_in = torch.stack(h_in, 1)                         # (B, nc, H, P, N)
     # 3. chunk scan
-    cb = torch.einsum("bcign,bcjgn->bcgij", Cs, Bs).repeat_interleave(rep, 2)
+    cb = _product("bcign,bcjgn->bcgij", Cs, Bs,
+                  tf32_terms).repeat_interleave(rep, 2)
     Lh = L.permute(0, 1, 3, 2)                          # (B, nc, H, q)
     ii = torch.arange(q)
     below = ii[:, None] >= ii[None, :]
@@ -242,9 +272,9 @@ def _emulate_kernel(x, dt, A, Bc, Cc, D, chunk, round_y=True):
         * dts.permute(0, 1, 3, 2)[..., None, :]
     if bf16:
         scores, h_in = _split3(scores), _split3(h_in)
-    y = torch.einsum("bchij,bcjhp->bcihp", scores, xs) \
-        + torch.exp(L)[..., None] * torch.einsum("bcihn,bchpn->bcihp", Ch,
-                                                 h_in) \
+    y = _product("bchij,bcjhp->bcihp", scores, xs, tf32_terms) \
+        + torch.exp(L)[..., None] * _product("bcihn,bchpn->bcihp", Ch, h_in,
+                                             tf32_terms) \
         + xs * D.float()[:, None]
     y = y.reshape(B, nc * q, H, P)[:, :S]
     return (y.to(x.dtype) if round_y else y), h
@@ -273,6 +303,41 @@ def test_kernel_arithmetic_matches_jax_kernel(B, S, H, P, G, N, chunk,
                       (h, h_p.numpy())):
         scale = max(1.0, float(np.abs(np.asarray(want, np.float32)).max()))
         assert _err(got, want) / scale < TOL[dtype]
+
+
+def _rel_err(got, want) -> float:
+    """Max error relative to the output's scale (at least 1), as
+    chip_smoke.py holds the kernel."""
+    want = np.asarray(want, np.float32)
+    return _err(got, want) / max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", EMULATION_CASES)
+def test_f32_kernel_three_tf32_products_are_inside_the_tolerance(
+        B, S, H, P, G, N, chunk):
+    """The f32 kernel's arithmetic, every product as three TF32 products,
+    against the Pallas kernel in interpret mode and the plain f32 path."""
+    jx, tx = _inputs(B, S, H, P, G, N, "float32", seed=3)
+    y, h = _emulate_kernel(*tx, chunk=chunk, tf32_terms=3)
+    y_k, h_k = jax_ssd(*jx, chunk=chunk, interpret=True)
+    y_p, h_p = tssm.ssd_chunked(*tx, chunk=chunk)
+    for got, want in ((y, y_k), (h, h_k), (y, y_p.numpy()),
+                      (h, h_p.numpy())):
+        assert _rel_err(got, want) < TOL["float32"]
+
+
+def test_one_tf32_product_is_outside_the_tolerance():
+    """At mamba2-130m's N 128 one TF32 product a product (10 mantissa bits)
+    misses 2e-5 by more than an order of magnitude: the split is needed,
+    and three products are enough."""
+    _, tx = _inputs(2, 512, 4, 64, 1, 128, "float32", seed=3)
+    y_p, h_p = tssm.ssd_chunked(*tx, chunk=128)
+    errs = {}
+    for terms in (1, 3):
+        y, h = _emulate_kernel(*tx, chunk=128, tf32_terms=terms)
+        errs[terms] = max(_rel_err(y, y_p.numpy()), _rel_err(h, h_p.numpy()))
+    assert errs[1] > 10 * TOL["float32"]
+    assert errs[3] < TOL["float32"] / 10
 
 
 def test_kernel_rounding_leaves_y_as_exact_as_f32():
@@ -313,17 +378,19 @@ def test_tile_plan_fits_a_block(N, dtype):
     assert all(b <= ops.MAX_SMEM_BYTES for b in plan["smem_bytes"].values())
     assert plan["smem_bytes"][3] == ops.smem_bytes(3, dtype, plan["chunk"],
                                                    N, 64, plan["groups"])
-    if dtype == torch.bfloat16:       # the served dtype keeps Q 128
-        assert plan["chunk"] == 128
-        # C.B^T once per 13 / 12 heads, one block per SM, as many warp
-        # groups side by side as fit: 4 at N 16, 2 at N 128
-        assert plan["scan_blocks"] <= ops.SMS
+    # both dtypes keep Q 128 (f32 at N 128 too, since its kernels take
+    # their products on the tensor cores), one chunk-scan block per SM
+    assert plan["chunk"] == 128
+    assert plan["scan_blocks"] <= ops.SMS
+    if dtype == torch.bfloat16:
+        # C.B^T once per 13 / 12 heads, as many warp groups side by side
+        # as fit: 4 at N 16, 2 at N 128
         assert plan["groups"] == (4 if N == 16 else 2)
         assert ops.smem_bytes(3, dtype, 128, N, 64, plan["groups"] + 1) \
             > ops.MAX_SMEM_BYTES or plan["groups"] == ops.MAX_GROUPS
-    else:                             # f32 at N 128 halves the chunk once
-        assert plan["chunk"] == (128 if N == 16 else 64)
-        assert plan["groups"] == 1 and plan["scan_blocks"] >= ops.SMS
+    else:                             # 16 warps on one head at a time
+        assert plan["groups"] == 1
+        assert plan["heads_per_block"] == (13 if N == 16 else 12)
     assert plan["chunks"] == 4096 // plan["chunk"]
     hs = plan["heads_per_block"]
     assert 1 <= hs <= H and plan["groups"] <= hs
@@ -334,5 +401,7 @@ def test_tile_plan_fits_a_block(N, dtype):
     wide = ops.tile_plan(1, 4096, 8, 128, 1, 256, dtype, 128)
     assert max(wide["smem_bytes"].values()) <= ops.MAX_SMEM_BYTES
     assert wide["chunk"] < 128
-    with pytest.raises(ValueError, match="P 512 x N 512"):
-        ops.tile_plan(1, 64, 2, 512, 1, 512, dtype, 64)
+    # (f32 holds h_in 64 head-dim rows at a time: N 512 fits at chunk 16)
+    wider = 512 if dtype == torch.bfloat16 else 1024
+    with pytest.raises(ValueError, match=f"P 512 x N {wider}"):
+        ops.tile_plan(1, 64, 2, 512, 1, wider, dtype, 64)
