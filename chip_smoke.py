@@ -119,6 +119,16 @@ the whole layer with no fingerprint launch, the default one hash nothing
 with one launch, both stores' checksums must be equal, and the two
 incremental saves must write the same chunks.
 
+``crash_save`` (after ``dlc_baseline``, ~30 s) kills a trainer mid-save
+and restarts it: a child process (``crash_save_child``) draws the same
+weights on the card, saves step 1 in full and dies by SIGKILL inside
+``LayerStore.write_blob`` of the incremental save of step 2, after its
+first new blob. Only step 1 may then be visible, deep-verified and
+restored onto the card bit for bit (by fingerprint table); a fresh
+manager saves step 2 again from an empty fingerprint baseline, so it
+hashes the whole tree on the host, and must inject, write only the
+changed chunks the child did not land, and restore bit for bit.
+
 Each phase prints one line of its own numbers and raises on a failed check.
 The last three lines are the kernels' summary (JSON), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device": ...}.
@@ -2466,6 +2476,187 @@ def phase_dlc_baseline(dev) -> dict:
     return out
 
 
+CRASH_CHILD_TIMEOUT_S = 300
+_CRASH_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke.crash_save_child(*sys.argv[2:])")
+
+
+def _crash_policy():
+    from repro_torch.ckpt import CheckpointPolicy
+    return CheckpointPolicy(use_fingerprints=True, chunk_bytes=DLC_CHUNK,
+                            async_write=False, keep=10)
+
+
+def _crash_model(device: str):
+    """The weights both sides of ``crash_save`` hold: ``dlc_baseline``'s
+    model (on a CPU, where the phase is tried at a small size, yi-6b's
+    smoke config), drawn from seed 0 on ``device``, and a copy with layer
+    1 of blocks/wk edited."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import init_params
+    dev = torch.device(device)
+    cfg = get_smoke_config("yi-6b") if dev.type == "cpu" else \
+        get_config("yi-6b").replace(n_layers=DLC_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    return cfg, params, _edit_leaf(params, "blocks/wk", 1)[0]
+
+
+def crash_save_child(root: str, tables: str, device: str) -> None:
+    """The trainer that dies (``phase_crash_save`` runs it in a process of
+    its own): a full save of step 1, the fingerprint tables of step 1 and
+    of the edited weights into ``tables``, then the incremental save of
+    step 2, killed by SIGKILL inside ``LayerStore.write_blob`` once its
+    first new blob has landed."""
+    import signal
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import LayerStore, fingerprint_tree
+    t0 = time.perf_counter()
+    cfg, params, edited = _crash_model(device)
+    mgr = CheckpointManager(root, cfg.name, _crash_policy())
+    mgr.save(1, params, {})
+    np.savez(tables, **{f"{step}:{k}": v for step, tree in (
+        ("step1", params), ("step2", edited)) for k, v in fingerprint_tree(
+            _flat(tree, "params"), DLC_CHUNK).items()})
+    write_blob = LayerStore.write_blob
+
+    def dying_write_blob(self, h, data):
+        new = write_blob(self, h, data)
+        if new:
+            print(json.dumps({"killed_in": "LayerStore.write_blob",
+                              "blob": h, "seconds":
+                              time.perf_counter() - t0}), flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        return new
+
+    LayerStore.write_blob = dying_write_blob
+    print("READY", flush=True)
+    mgr.save(2, edited, {})
+    print("UNREACHABLE", flush=True)
+
+
+def phase_crash_save(dev) -> dict:
+    """A trainer killed mid-save and restarted. A child process draws
+    ``dlc_baseline``'s weights on the card, saves step 1 in full, and dies
+    by SIGKILL inside the incremental save of step 2, after its first new
+    blob. The store must then show step 1 alone, deep-verified, and
+    restore it onto the card bit for bit (by fingerprint table). A fresh
+    manager (the restart: no fingerprint baseline) saves the edited
+    weights this process drew from the same seed as step 2: it must
+    inject, hash on the host every byte of the tree (the fall-back of
+    ``core/diff.py`` for a leaf with no old table), write no chunk outside
+    the changed ones, and restore bit for bit."""
+    import signal
+
+    import repro_torch.core.diff as diff_mod
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import LayerStore, fingerprint_tree
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+    try:
+        root = os.path.join(tmp, "ckpt")
+        tables = os.path.join(tmp, "tables.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _CRASH_CHILD, ROOT, root, tables,
+             str(dev)],
+            capture_output=True, text=True, timeout=CRASH_CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        check(proc.returncode == -signal.SIGKILL and
+              "READY" in proc.stdout and "UNREACHABLE" not in proc.stdout,
+              f"the saving child did not die by SIGKILL: rc "
+              f"{proc.returncode}, {proc.stderr[-2000:]}")
+        killed = json.loads(proc.stdout.strip().splitlines()[-1])
+        fps = np.load(tables)
+        want = {s: {k.split(":", 1)[1]: fps[k] for k in fps.files
+                    if k.startswith(s + ":")} for s in ("step1", "step2")}
+
+        store = LayerStore(root, chunk_bytes=DLC_CHUNK)
+        mgr = CheckpointManager(root, "yi-6b", _crash_policy(), store=store)
+        tag1, tag2 = mgr.tag_of(1), mgr.tag_of(2)
+        check(mgr.latest_step() == 1 and store.list_tags("ckpt") == [tag1],
+              f"after the kill the store shows {store.list_tags('ckpt')}")
+        check(store.verify_image("ckpt", tag1, deep=True) == [],
+              "step 1 does not deep-verify after the kill")
+        step1_blobs = _blob_set(store, "ckpt", tag1)
+        leftovers = set(_store_blobs(store)) - step1_blobs
+        check(killed["blob"] in leftovers,
+              "the blob the child landed before dying is not on disk")
+
+        def restore(step):
+            _sync(dev)
+            t = time.perf_counter()
+            got = CheckpointManager(root, "yi-6b", _crash_policy()).restore(
+                step, device=dev)
+            _sync(dev)
+            return got, time.perf_counter() - t
+
+        def same_tables(params, step) -> bool:
+            got = fingerprint_tree(_flat(params, "params"), DLC_CHUNK)
+            return got.keys() == want[step].keys() and all(
+                np.array_equal(got[k], want[step][k]) for k in got)
+
+        (params1, _, step), restore1_s = restore(1)
+        check(step == 1 and same_tables(params1, "step1"),
+              "step 1 restored onto the card differs from the child's")
+        del params1
+
+        _, _, edited = _crash_model(str(dev))
+        payload_bytes = _nbytes(edited) + 4         # + opt/__step__ (int32)
+        hashed = [0]
+        hash_chunks = diff_mod.hash_chunks
+
+        def counting_hash_chunks(pieces):
+            pieces = list(pieces)
+            hashed[0] += sum(len(p) for p in pieces)
+            return hash_chunks(pieces)
+
+        diff_mod.hash_chunks = counting_hash_chunks
+        try:
+            restarted = CheckpointManager(root, "yi-6b", _crash_policy())
+            _sync(dev)
+            t0 = time.perf_counter()
+            rep = restarted.save(2, edited, {})
+            save_s = time.perf_counter() - t0
+        finally:
+            diff_mod.hash_chunks = hash_chunks
+        changed = _blob_set(store, "ckpt", tag2) - step1_blobs
+        landed = changed & leftovers
+        check(rep.layers_built == 0 and rep.layers_injected == 2,
+              f"the restarted save rebuilt: {rep}")
+        check(hashed[0] == payload_bytes and rep.chunks_prefiltered == 0,
+              f"the restarted save hashed {hashed[0]} B on the host, not "
+              f"the tree's {payload_bytes}")
+        check(landed and rep.chunks_written + len(landed) == len(changed),
+              f"the restarted save wrote {rep.chunks_written} chunks, the "
+              f"child landed {len(landed)} of the {len(changed)} changed")
+        del edited
+        (params2, _, step), restore2_s = restore(2)
+        check(step == 2 and same_tables(params2, "step2"),
+              "step 2 restored onto the card differs from the child's table")
+        del params2
+        check(store.verify_image("ckpt", tag2, deep=True) == [],
+              "step 2 does not deep-verify")
+        out = {"child_seconds": child_s, "child_seconds_to_kill":
+               killed["seconds"], "kill_point": killed["killed_in"],
+               "blobs_uncommitted": len(leftovers),
+               "restore1_seconds": restore1_s,
+               "restore2_seconds": restore2_s,
+               "restart_save_seconds": save_s,
+               "restart_bytes_hashed_host": hashed[0],
+               "restart_bytes_hashed_report": rep.bytes_hashed,
+               "payload_bytes": payload_bytes,
+               "chunks_written": rep.chunks_written,
+               "changed_chunks": len(changed), "fsyncs": rep.fsyncs,
+               "seconds": time.perf_counter() - t_phase}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("crash_save", **out,
+        card=subprocess.run(CARD_SHELL, capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+        if dev.type == "cuda" else None)
+    return out
+
+
 def _local_tree(tree):
     if isinstance(tree, dict):
         return {k: _local_tree(v) for k, v in tree.items()}
@@ -2821,6 +3012,9 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
     # slice 13: the seed's Docker-faithful COPY cache check beside the
     # fingerprint prefilter
     phase_dlc_baseline(dev)
+    torch.cuda.empty_cache()
+    # slice 16: a trainer killed by SIGKILL mid-save, then restarted
+    phase_crash_save(dev)
     torch.cuda.empty_cache()
     dry.finish()
 

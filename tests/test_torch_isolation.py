@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch``, nor ``chip_smoke.py``
-nor the port's examples, imports the JAX package, JAX or ml_dtypes; the
+nor the port's examples, nor the port's children that
+``test_torch_crash.py`` kills, imports the JAX package, JAX or ml_dtypes; the
 serving slice, the moe and mla families, the follower, the training
 quickstart, the scrub and chaos CLIs, the multi-tenant, elastic-restart
 and prompt-tuning examples run in a process where those cannot be
@@ -41,8 +42,11 @@ def _port_files():
 
 def _imports(path):
     with open(path) as f:
-        tree = ast.parse(f.read(), path)
-    for node in ast.walk(tree):
+        yield from _imports_in(f.read(), path)
+
+
+def _imports_in(source, name):
+    for node in ast.walk(ast.parse(source, name)):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -54,6 +58,37 @@ def _imports(path):
 def test_no_banned_import(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in BANNED]
     assert bad == [], f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+CRASH = os.path.join(ROOT, "tests", "test_torch_crash.py")
+
+
+def _crash_port_children():
+    """The port's child scripts of ``test_torch_crash.py``, read from its
+    module-level string literals without importing it: ``PORT_PARTS``
+    joined, then each ``BODIES`` entry -> {body: script}."""
+    with open(CRASH) as f:
+        tree = ast.parse(f.read(), CRASH)
+    consts = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                isinstance(node.targets[0], ast.Name):
+            try:
+                consts[node.targets[0].id] = ast.literal_eval(node.value)
+            except ValueError:
+                continue
+    parts = "".join(consts[p] for p in consts["PORT_PARTS"])
+    return {case: parts + body for case, body in consts["BODIES"].items()}
+
+
+@pytest.mark.parametrize("body", sorted(_crash_port_children()))
+def test_killed_port_child_imports_nothing_banned(body):
+    """A port child that ``test_torch_crash.py`` kills imports only the
+    port (it also runs with the banned modules blocked)."""
+    script = _crash_port_children()[body]
+    bad = [m for m in _imports_in(script, body) if m.split(".")[0] in BANNED]
+    assert bad == [], f"the {body} child imports {bad}"
+    assert "import repro_torch" in script or "from repro_torch" in script
 
 
 _BLOCKED_RUN = r"""
