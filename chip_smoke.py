@@ -9,7 +9,8 @@ spills as ptxas reports them (and fails if ptxas serialised a kernel's
 wgmma, or if one of the SSD scan's or the f32 flash kernels spills), and
 holds each kernel against its plain torch version on edge cases: the
 fingerprint bit-exactly, flash attention (its f32 kernel, three TF32
-products a product on ``mma.sync``, and its bf16 ``wgmma`` kernel) and
+products a product on ``mma.sync``, and its bf16 ``wgmma`` kernel, at
+every (D, Dv) pair they take) and
 the SSD scan (f32 also as three TF32 products a product) within the JAX
 kernel tests' tolerances. It checks the f32
 smoke model of every arch of the registry on the card against the CPU,
@@ -36,10 +37,15 @@ computes and holds them against the model's own results (the served
 models, as in the JAX package, run the plain attention and scan), and
 times each kernel beside its bound, its plain version and, for attention,
 ``scaled_dot_product_attention``; last at yi-6b's attention shape (bf16
-and f32), hymba-1.5b's in f32, mamba2-130m's scan shape (bf16 and f32)
-and hymba-1.5b's in f32. The SSD scan runs as three CUDA
-kernels a call (chunk state, state passing, chunk scan); its launches
-count calls, and each of the three CUDA kernels is counted as well.
+and f32), hymba-1.5b's in f32, gemma-2b's and minicpm3-4b's (bf16 and
+f32), mamba2-130m's scan shape (bf16 and f32) and hymba-1.5b's in f32.
+The flash entry point runs the same way on every layer of a 4096-token
+prefill of the served minicpm3-4b (``mla_kernel_path``: its MLA's q and k
+at 96, v at 64) before its weights are freed, and of gemma-2b drawn at
+full width and depth (``gemma_kernel_path``: MQA at head dim 256). The
+SSD scan runs as three CUDA kernels a call (chunk state, state passing,
+chunk scan); its launches count calls, and each of the three CUDA kernels
+is counted as well.
 
 The store's remaining surface rides the same serving paths. On
 yi-6b's tree, ``fp_per_leaf`` runs the per-leaf fingerprint baseline
@@ -141,6 +147,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -248,19 +255,25 @@ def phase_build():
     check(len(scan) == 5 and all(
         k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0
         for k in scan), f"the SSD kernels spill (or are missing): {scan}")
-    fa_f32 = [k for k in ptxas["flash_attention"]["kernels"]
-              if "fa_kernel" in k["name"]]
-    check(len(fa_f32) == 3 and all(
-        k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0
-        for k in fa_f32), f"the f32 flash kernels spill (or are missing): "
-        f"{fa_f32}")
-    plans = {d: fa_ops.tile_plan(d)["smem_bytes"] for d in fa_ops.HEAD_DIMS}
-    f32_plans = {d: fa_ops.f32_tile_plan(d)["smem_bytes"]
-                 for d in fa_ops.HEAD_DIMS}
+    flash = _flash_kernels(ptxas["flash_attention"])
+    pairs = [f"({d}, {dv})" for d, dv in fa_ops.HEAD_DIMS]
+    check(sorted(flash) == sorted(f"{t} {p}" for t in ("bf16", "f32")
+                                  for p in pairs),
+          f"the flash kernels built are not one a dtype and pair: "
+          f"{sorted(flash)}")
+    fa_f32 = {k: v for k, v in flash.items() if k.startswith("f32")}
+    check(all(k["spill_bytes"] == 0 for k in fa_f32.values()),
+          f"the f32 flash kernels spill: {fa_f32}")
+    plans = {f"{d}, {dv}": fa_ops.tile_plan(d, dv)["smem_bytes"]
+             for d, dv in fa_ops.HEAD_DIMS}
+    f32_plans = {f"{d}, {dv}": fa_ops.f32_tile_plan(d, dv)["smem_bytes"]
+                 for d, dv in fa_ops.HEAD_DIMS}
     lib = fa_ops.load_library()
-    check(all(lib.fa_bf16_smem_bytes(d) == b for d, b in plans.items()),
+    check(all(lib.fa_bf16_smem_bytes(d, dv) == plans[f"{d}, {dv}"]
+              for d, dv in fa_ops.HEAD_DIMS),
           "ops.tile_plan disagrees with the kernel's shared memory")
-    check(all(lib.fa_f32_smem_bytes(d) == b for d, b in f32_plans.items()),
+    check(all(lib.fa_f32_smem_bytes(d, dv) == f32_plans[f"{d}, {dv}"]
+              for d, dv in fa_ops.HEAD_DIMS),
           "ops.f32_tile_plan disagrees with the kernel's shared memory")
     ssd_lib = ssd_ops.load_library()
     ssd_plans = {}
@@ -280,9 +293,25 @@ def phase_build():
                           f"g{groups}"] = want
     log("build", seconds=secs, card=torch.cuda.get_device_name(0),
         cuda=torch.version.cuda, torch=torch.__version__,
-        built=sorted(paths), ptxas=ptxas, flash_bf16_smem_bytes=plans,
-        flash_f32_smem_bytes=f32_plans,
+        built=sorted(paths), ptxas=ptxas, flash_kernels=flash,
+        flash_bf16_smem_bytes=plans, flash_f32_smem_bytes=f32_plans,
         ssd_smem_bytes=ssd_plans)
+
+
+def _flash_kernels(report: dict) -> dict:
+    """The flash library's ptxas report by kernel: {"bf16 (D, Dv)" or
+    "f32 (D, Dv)": registers and spill bytes (stores + loads)}."""
+    out = {}
+    for k in report["kernels"]:
+        m = re.search(r"(fa_bf16_kernel|fa_kernel)ILi(\d+)ELi(\d+)E",
+                      k["name"])
+        if m:
+            dtype = "bf16" if m.group(1) == "fa_bf16_kernel" else "f32"
+            out[f"{dtype} ({m.group(2)}, {m.group(3)})"] = {
+                "registers": k.get("registers"),
+                "spill_bytes": k.get("spill_stores", 1)
+                + k.get("spill_loads", 1)}
+    return out
 
 
 def _device_tree(dev):
@@ -582,25 +611,45 @@ def phase_examples() -> dict:
 
 
 # -------------------------------------------------- flash attention, SSD scan
-# B, Hq, KVH, S, D, window, causal, scale
+# B, Hq, KVH, S, D, Dv, window, causal, scale
 FA_EDGE_CASES = [
-    (2, 4, 2, 128, 64, None, True, None),     # tests/test_kernels.py FA_CASES
-    (1, 4, 4, 256, 32, None, True, None),
-    (2, 8, 2, 128, 64, 32, True, None),
-    (1, 2, 1, 64, 128, None, True, None),
-    (1, 4, 2, 200, 64, None, True, None),     # ragged S: a partial last tile
-    (2, 4, 2, 200, 128, 50, True, None),      # ragged S inside a band
-    (1, 4, 1, 128, 32, None, False, None),    # not causal
-    (1, 4, 2, 160, 64, 48, False, 0.3),       # a window alone, explicit scale
-    (1, 2, 1, 256, 64, 40, True, None),       # first KV tile wholly masked
-                                              # for the late rows of a tile
+    (2, 4, 2, 128, 64, 64, None, True, None),   # tests/test_kernels.py
+    (1, 4, 4, 256, 32, 32, None, True, None),
+    (2, 8, 2, 128, 64, 64, 32, True, None),
+    (1, 2, 1, 64, 128, 128, None, True, None),
+    (1, 4, 2, 200, 64, 64, None, True, None),   # ragged S: a partial tile
+    (2, 4, 2, 200, 128, 128, 50, True, None),   # ragged S inside a band
+    (1, 4, 1, 128, 32, 32, None, False, None),  # not causal
+    (1, 4, 2, 160, 64, 64, 48, False, 0.3),     # a window alone, a scale
+    (1, 2, 1, 256, 64, 64, 40, True, None),     # first KV tile wholly
+                                                # masked for the late rows
     # ragged S and many KV tiles of 128 keys: the last query tile's block
     # visits 10, 9 and 11 of them, wrapping the bf16 kernel's ring of 4
     # (D 32, 64) or 3 (D 128) stages at least twice
-    (1, 4, 2, 1300, 64, 1100, True, None),    # a window and GQA
-    (2, 5, 1, 1100, 128, None, True, None),
-    (1, 4, 2, 1300, 32, None, False, 0.3),    # not causal, explicit scale
-    (1, 4, 2, 1000, 64, 300, True, None),     # a narrow band: 3-4 tiles
+    (1, 4, 2, 1300, 64, 64, 1100, True, None),  # a window and GQA
+    (2, 5, 1, 1100, 128, 128, None, True, None),
+    (1, 4, 2, 1300, 32, 32, None, False, 0.3),  # not causal, a scale
+    (1, 4, 2, 1000, 64, 64, 300, True, None),   # a narrow band: 3-4 tiles
+    # a window below 1: causal, no row sees a key (each averages all S
+    # values); not causal, row r sees the keys from r - window + 1 on, the
+    # last rows none
+    (1, 4, 2, 200, 64, 64, 0, True, None),
+    (1, 4, 2, 300, 128, 128, -5, False, None),
+    # gemma-2b's (256, 256), MQA: 64-key bf16 tiles through a ring of 2,
+    # 32-key f32 tiles; ragged S over 18 (35) tiles, a band with GQA, no
+    # mask with a scale, a wholly masked first tile, a window of 0
+    (1, 8, 1, 1100, 256, 256, None, True, None),
+    (2, 4, 2, 1300, 256, 256, 300, True, None),
+    (1, 4, 1, 1000, 256, 256, None, False, 0.3),
+    (1, 2, 1, 256, 256, 256, 40, True, None),
+    (1, 4, 1, 200, 256, 256, 0, True, None),
+    # minicpm3-4b's MLA (96, 64): q and k in two 64-column boxes (the
+    # second half zero), v in one; the same cases
+    (1, 8, 8, 1300, 96, 64, None, True, 96 ** -0.5),
+    (2, 4, 2, 1000, 96, 64, 300, True, None),
+    (1, 4, 1, 700, 96, 64, None, False, 0.3),
+    (1, 2, 1, 256, 96, 64, 40, True, None),
+    (1, 4, 2, 300, 96, 64, -5, False, None),
 ]
 # B, S, H, P, G, N, chunk, |A| scale
 SSD_EDGE_CASES = [
@@ -630,8 +679,10 @@ SSD_UNALIGNED_CASES = [
 # f32 cases run again with q, k and v each a contiguous view one element
 # into its storage: the f32 kernel then copies K and V in 4-byte pieces
 FA_UNALIGNED_CASES = [
-    (2, 4, 2, 200, 128, 50, True, None),
-    (1, 4, 2, 1300, 64, 1100, True, None),
+    (2, 4, 2, 200, 128, 128, 50, True, None),
+    (1, 4, 2, 1300, 64, 64, 1100, True, None),
+    (1, 8, 1, 300, 256, 256, None, True, None),
+    (2, 4, 2, 300, 96, 64, 100, True, None),
 ]
 FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -641,9 +692,10 @@ def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def _flash_inputs(g, B, Hq, KVH, S, D, dtype, dev):
+def _flash_inputs(g, B, Hq, KVH, S, D, Dv, dtype, dev):
     return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
-                 for shape in ((B, Hq, S, D), (B, KVH, S, D), (B, KVH, S, D)))
+                 for shape in ((B, Hq, S, D), (B, KVH, S, D),
+                               (B, KVH, S, Dv)))
 
 
 def _ssd_inputs_seeded(g, B, S, H, P, G, N, a_scale, dtype, dev):
@@ -668,8 +720,8 @@ def phase_flash_edges(dev) -> None:
             for dt in (torch.float32, torch.bfloat16)] + \
         [(c, torch.float32, True) for c in FA_UNALIGNED_CASES]
     for case, dtype, unaligned in runs:
-        B, Hq, KVH, S, D, win, causal, scale = case
-        q, k, v = _flash_inputs(g, B, Hq, KVH, S, D, dtype, dev)
+        B, Hq, KVH, S, D, Dv, win, causal, scale = case
+        q, k, v = _flash_inputs(g, B, Hq, KVH, S, D, Dv, dtype, dev)
         if unaligned:
             q, k, v = (_one_element_in(t) for t in (q, k, v))
             check(all(t.data_ptr() % 16 for t in (q, k, v)),
@@ -677,11 +729,12 @@ def phase_flash_edges(dev) -> None:
         kw = dict(causal=causal, window=win, scale=scale)
         got = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        check(got.shape == (B, Hq, S, Dv), f"flash {case}: {got.shape}")
         err = _max_err(got, reference(q, k, v, **kw))
         check(err < FA_TOL[dtype],
               f"flash {case} {dtype} unaligned={unaligned}: {err}")
-        name = str(dtype).split(".")[-1] + ("_unaligned" if unaligned
-                                            else "")
+        name = f"{str(dtype).split('.')[-1]} ({D}, {Dv})" + (
+            " unaligned" if unaligned else "")
         if err >= worst.get(name, 0.0):
             worst[name], worst_case[name] = err, case
     log("kernel_edges_flash", cases=len(FA_EDGE_CASES), dtypes=2,
@@ -773,18 +826,21 @@ def _bound(nbytes: int, ops: float, dtype, tf32: bool = False) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
-def flash_bound(q, k, causal: bool, window) -> dict:
-    """Unmasked (query, key) pairs x 4 D operations (2 D for q.k, 2 D for
-    p.v); q, k, v read once and o written once. In f32 the operations are
-    the kernel's three TF32 products each, over the TF32 tensor rate
-    (``alu_bound_ms``: the flops alone over the CUDA cores' f32 rate)."""
+def flash_bound(q, k, v, causal: bool, window) -> dict:
+    """Unmasked (query, key) pairs x 2 (D + Dv) operations (2 D for q.k,
+    2 Dv for p.v); q, k, v read once and o (B, Hq, S, Dv) written once. In
+    f32 the operations are the kernel's three TF32 products each, over the
+    TF32 tensor rate (``alu_bound_ms``: the flops alone over the CUDA
+    cores' f32 rate)."""
     B, Hq, S, D = q.shape
+    Dv = v.shape[-1]
     pos = np.arange(S)
     lo = np.maximum(pos - window + 1, 0) if window else np.zeros(S, int)
     hi = pos + 1 if causal else np.full(S, S)
     pairs = B * Hq * int((hi - lo).sum())
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4.0 * D * pairs
+    nbytes = (q.numel() + k.numel() + v.numel() + B * Hq * S * Dv) \
+        * q.element_size()
+    flops = 2.0 * (D + Dv) * pairs
     if q.dtype == torch.bfloat16:
         return _bound(nbytes, flops, q.dtype)
     res = _bound(nbytes, F32_TF32_PRODUCTS * flops, q.dtype, tf32=True)
@@ -827,7 +883,8 @@ def time_flash(q, k, v, *, causal: bool, window, reps: int = 20) -> dict:
     F = torch.nn.functional
     kw = dict(causal=causal, window=window)
     got = flash_attention(q, k, v, **kw)
-    res = {"shape": list(q.shape), "kv_heads": k.shape[1], "causal": causal,
+    res = {"shape": list(q.shape), "kv_heads": k.shape[1],
+           "v_head_dim": v.shape[-1], "causal": causal,
            "window": window, "dtype": str(q.dtype).split(".")[-1],
            "max_abs_err": _max_err(got, reference(q, k, v, **kw))}
     check(res["max_abs_err"] < FA_TOL[q.dtype],
@@ -847,7 +904,7 @@ def time_flash(q, k, v, *, causal: bool, window, reps: int = 20) -> dict:
             q, k, v, is_causal=causal, enable_gqa=True)
     res["library_ms"] = cuda_ms(lib, reps)
     res["library"] = "torch.nn.functional.scaled_dot_product_attention"
-    res.update(flash_bound(q, k, causal, window))
+    res.update(flash_bound(q, k, v, causal, window))
     return res
 
 
@@ -901,16 +958,24 @@ def phase_seeded_shapes(dev) -> dict:
     """The kernels at the widths of the repo's other models: yi-6b's
     attention (causal, no window) in bf16 and in f32 (the 3xTF32 kernel,
     SDPA in f32 beside it; TF32 is off), the f32 kernel again at
-    hymba-1.5b's (window 2048), and the SSD scan at mamba2-130m's shape (N
-    128) in bf16, and in f32 there and at hymba-1.5b's (N 16)."""
+    hymba-1.5b's (window 2048), gemma-2b's (MQA, D 256) and minicpm3-4b's
+    MLA (D 96, Dv 64) in both dtypes, and the SSD scan at mamba2-130m's
+    shape (N 128) in bf16, and in f32 there and at hymba-1.5b's (N 16)."""
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(5)
     flash = {}
-    for name, dtype, (B, Hq, KVH, S, D, win), reps in (
-            ("yi-6b", torch.bfloat16, (1, 32, 4, 4096, 128, None), 20),
-            ("yi-6b", torch.float32, (1, 32, 4, 4096, 128, None), 10),
-            ("hymba-1.5b", torch.float32, (2, 25, 5, 4096, 64, 2048), 10)):
-        q, k, v = _flash_inputs(g, B, Hq, KVH, S, D, dtype, dev)
+    for name, dtype, (B, Hq, KVH, S, D, Dv, win), reps in (
+            ("yi-6b", torch.bfloat16, (1, 32, 4, 4096, 128, 128, None), 20),
+            ("yi-6b", torch.float32, (1, 32, 4, 4096, 128, 128, None), 10),
+            ("hymba-1.5b", torch.float32,
+             (2, 25, 5, 4096, 64, 64, 2048), 10),
+            ("gemma-2b", torch.bfloat16, (1, 8, 1, 4096, 256, 256, None), 20),
+            ("gemma-2b", torch.float32, (1, 8, 1, 4096, 256, 256, None), 10),
+            ("minicpm3-4b", torch.bfloat16,
+             (1, 40, 40, 4096, 96, 64, None), 20),
+            ("minicpm3-4b", torch.float32,
+             (1, 40, 40, 4096, 96, 64, None), 10)):
+        q, k, v = _flash_inputs(g, B, Hq, KVH, S, D, Dv, dtype, dev)
         flash[name, dtype] = time_flash(q, k, v, causal=True, window=win,
                                         reps=reps)
         flash[name, dtype]["model"] = name
@@ -931,6 +996,10 @@ def phase_seeded_shapes(dev) -> dict:
     out = {"flash": flash["yi-6b", torch.bfloat16],
            "flash_f32": flash["yi-6b", torch.float32],
            "flash_f32_hymba": flash["hymba-1.5b", torch.float32],
+           "flash_gemma": flash["gemma-2b", torch.bfloat16],
+           "flash_f32_gemma": flash["gemma-2b", torch.float32],
+           "flash_mla": flash["minicpm3-4b", torch.bfloat16],
+           "flash_f32_mla": flash["minicpm3-4b", torch.float32],
            "ssd": scans["mamba2-130m", torch.bfloat16],
            "ssd_f32": scans["mamba2-130m", torch.float32],
            "ssd_f32_hymba": scans["hymba-1.5b", torch.float32]}
@@ -1165,6 +1234,125 @@ def phase_kernel_path(cfg, params, prompts, dev) -> dict:
         tol={"flash": FA_TOL[dtype], "ssd": SSD_TOL[dtype]})
     return {"launches": launches, "ssd_cuda_kernels": cuda_kernels,
             "err": err, "layer0": layer0}
+
+
+def _flash_layer_path(cfg, params, toks, layer_qkv, block, *, scale=None
+                      ) -> dict:
+    """The flash attention entry point on every layer of a served model's
+    prefill: ``layer_qkv(p, x, positions)`` gives the layer's q, k, v as
+    the model computes them ((B, S, heads, dim); k and v un-repeated) and
+    the KV heads' repeat, the kernel's output is held against the model's
+    own ``attention`` on the same tensors (k and v repeated, as the model
+    calls it), and ``block`` moves x on through the model's own layer.
+    Launches are counted from here to the end of the layer loop."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.attention import attention
+    from repro_torch.models.blocks import _repeat_kv
+    from repro_torch.models.model import _unstack, embed_tokens
+    B, S = toks.shape
+    positions = torch.arange(S, device=toks.device).expand(B, S)
+    err, t0 = 0.0, time.perf_counter()
+    flash_attention.launches = 0
+    with torch.inference_mode():
+        x = embed_tokens(cfg, params, toks)
+        for p in _unstack(params["blocks"]):
+            q, k, v, rep = layer_qkv(p, x, positions)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            o = flash_attention(qt, kt, vt, causal=True, window=cfg.window,
+                                scale=scale)
+            o_model = attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                                causal=True, window=cfg.window,
+                                impl=cfg.attn_impl, kv_block=cfg.kv_block,
+                                q_block=cfg.q_block, scale=scale,
+                                score_dtype=cfg.score_dtype)
+            err = max(err, _max_err(o.transpose(1, 2), o_model))
+            x = block(p, x, positions)
+    _sync(toks.device)
+    launches = flash_attention.launches
+    dtype = params["embed"].dtype
+    shape = [B, q.shape[2], k.shape[2], S, q.shape[3], v.shape[3]]
+    check(err < FA_TOL[dtype],
+          f"{cfg.name}: flash kernel vs the model's attention: {err}")
+    check(launches == cfg.n_layers,
+          f"{cfg.name}: flash launches on the path: {launches}")
+    return {"seconds": time.perf_counter() - t0, "model": cfg.name,
+            "layers": cfg.n_layers, "batch": B, "prompt_len": S,
+            "shape_b_hq_kvh_s_d_dv": shape, "launches": launches,
+            "max_abs_err": err, "tol": FA_TOL[dtype]}
+
+
+def _seeded_tokens(cfg, batch: int, seq: int, dev) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(7)
+    return torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
+
+
+MLA_PATH_BATCH, MLA_PATH_LEN = 1, 4096
+
+
+def phase_mla_kernel_path(cfg, params, dev) -> dict:
+    """minicpm3-4b's served weights (all 62 layers): on every layer of a
+    prefill of ``MLA_PATH_BATCH`` x ``MLA_PATH_LEN`` tokens, q (nope +
+    rope, 96), k (the ``wkv_b`` expansion of the latent, with the shared
+    rope key) and v (64) as ``apply_mla_block`` computes them, through the
+    kernel at (96, 64) with the block's scale, against the model's
+    ``attention``."""
+    from repro_torch.models.blocks import _mla_qkv, apply_mla_block
+    from repro_torch.models.layers import proj_heads, rms_norm
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+
+    def layer_qkv(p, x, positions):
+        h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+        q, c_kv, k_rope = _mla_qkv(cfg, p, h, positions)
+        kv = proj_heads(c_kv, p["wkv_b"])
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        B, S, H, _ = kv.shape
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope)],
+                      dim=-1)
+        return q, k, v, 1
+
+    res = _flash_layer_path(
+        cfg, params, _seeded_tokens(cfg, MLA_PATH_BATCH, MLA_PATH_LEN, dev),
+        layer_qkv, lambda p, x, pos: apply_mla_block(cfg, p, x, pos)[0],
+        scale=(nope + rope) ** -0.5)
+    log("kernel_path_mla", **res)
+    return res
+
+
+GEMMA_PATH_BATCH, GEMMA_PATH_LEN = 2, 4096
+
+
+def phase_gemma_kernel_path(dev) -> dict:
+    """gemma-2b at full width and depth (18 layers, 2.51 B params in bf16),
+    weights drawn on the card as ``run_model`` draws them; on every layer
+    of a ``GEMMA_PATH_BATCH`` x ``GEMMA_PATH_LEN`` prefill, q, k and v from
+    the dense block's ``_qkv`` through the kernel at (256, 256) on the one
+    KV head, against the model's ``attention`` on k and v repeated to the
+    8 query heads. No save, no follower: the kernel path alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.blocks import _qkv, apply_dense_block
+    from repro_torch.models.layers import rms_norm
+    t0 = time.perf_counter()
+    cfg = get_config("gemma-2b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    rep = cfg.n_heads // cfg.n_kv_heads
+
+    def layer_qkv(p, x, positions):
+        h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
+        return (*_qkv(cfg, p, h, positions), rep)
+
+    res = _flash_layer_path(
+        cfg, params, _seeded_tokens(cfg, GEMMA_PATH_BATCH, GEMMA_PATH_LEN,
+                                    dev),
+        layer_qkv, lambda p, x, pos: apply_dense_block(cfg, p, x, pos)[0])
+    res.update(init_seconds=init_s, param_bytes=_nbytes(params),
+               seconds_with_init=time.perf_counter() - t0)
+    log("kernel_path_gemma", **res)
+    del params
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_kernel_full(layer0, cfg) -> dict:
@@ -2917,7 +3105,8 @@ def _row(name, source, replaces, launches, res, others=()) -> dict:
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            **{k: res[k] for k in keys}}
-    extra = ("shape", "model", "dtype", "library", "graph_ms", "phase_ms")
+    extra = ("shape", "kv_heads", "v_head_dim", "model", "dtype", "library",
+             "graph_ms", "phase_ms")
     row.update({k: res[k] for k in extra if k in res})
     if others:
         row["other_shapes"] = [{k: o[k] for k in keys + extra + (
@@ -2975,8 +3164,12 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
     mc = run_model("minicpm3-4b", dev, edit="blocks/wkv_b", edit_layer=3,
                    batch=4, prompt_len=128, new_tokens=32, follower="smart")
     fp_mla_launches = mc["launches"]
+    # slice 17: the flash kernel at the MLA's (96, 64) on every layer of
+    # the served minicpm3-4b's prefill, then at gemma-2b's (256, 256)
+    mla_path = phase_mla_kernel_path(mc["cfg"], mc["engine"].params, dev)
     del mc
     torch.cuda.empty_cache()
+    gemma_path = phase_gemma_kernel_path(dev)
 
     # slice 2: the hybrid family at full width; then the two kernels' own
     # entry points on the tensors its prefill computes
@@ -3056,9 +3249,14 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
              "src/repro/kernels/flash_attention/kernel.py:33",
              launches["flash_attention"], full["flash"],
              (seeded["flash"], seeded["flash_f32"],
-              seeded["flash_f32_hymba"])),
+              seeded["flash_f32_hymba"], seeded["flash_gemma"],
+              seeded["flash_f32_gemma"], seeded["flash_mla"],
+              seeded["flash_f32_mla"])),
         ssd_row,
     ]}
+    summary["kernels"][1].update(
+        launches_mla_path=mla_path["launches"],
+        launches_gemma_path=gemma_path["launches"])
     card = subprocess.run(CARD_SHELL, capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()
     log("done", seconds=time.perf_counter() - t_start)

@@ -6,8 +6,9 @@ for tensors on a CUDA device it launches ``csrc/flash_attention.cu``, or
 raises: bf16 inputs go to the wgmma kernel fed by TMA (tiles in
 ``tile_plan``), f32 inputs to the one that runs each product as three TF32
 products on ``mma.sync`` (3xTF32, f32-accurate; tiles in
-``f32_tile_plan``). It never falls back
-from a kernel to the plain version or from one kernel to the other.
+``f32_tile_plan``), each at the (D, Dv) pairs of ``HEAD_DIMS``. It never
+falls back from a kernel to the plain version or from one kernel to the
+other.
 ``flash_attention.launches`` counts kernel launches, and nothing else.
 """
 from __future__ import annotations
@@ -23,42 +24,66 @@ from .ref import flash_attention_ref
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "flash_attention.cu")
-HEAD_DIMS = (32, 64, 128)
+# the (D, Dv) pairs the kernels take: q's and k's head dim, v's; gemma-2b's
+# (256, 256) and minicpm3-4b's MLA (96, 64) beside the dense models' (the
+# C side's FA_PAIRS)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (96, 64))
+SMEM_MAX = 232_448    # the dynamic shared memory an H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None   # the loaded library, once per process
 
 
-def tile_plan(d: int) -> dict:
-    """The bf16 kernel's tiles at head dim ``d``, as ``csrc`` fixes them:
-    query rows and keys a block, ring stages, the swizzled row of one TMA
-    box, and the dynamic shared memory a block takes (Q, the ring of K and
-    V tiles, one 8-byte mbarrier per ring slot twice plus Q's, and 1024
-    bytes to align the base)."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
-    q_rows = kv_rows = 128
-    stages = 3 if d == 128 else 4
+def _check_pair(d: int, dv: int) -> None:
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dims (D, Dv) in "
+                         f"{HEAD_DIMS}, not {(d, dv)}")
+
+
+def tile_plan(d: int, dv: int) -> dict:
+    """The bf16 kernel's tiles at head dims ``(d, dv)``, as ``csrc``
+    fixes them: query rows and keys a block (64 keys at D 256, else 128),
+    the swizzled row of one TMA box, the columns Q and K take in shared
+    memory (whole boxes: 128 at D 96, its last 32 zero), ring stages (as
+    many as fit, at most 4), and the dynamic shared memory a block takes
+    (Q, the ring of K and V tiles, one 8-byte mbarrier per ring slot twice
+    plus Q's, and 1024 bytes to align the base)."""
+    _check_pair(d, dv)
+    q_rows, kv_rows = 128, 64 if d == 256 else 128
     row_bytes = 64 if d == 32 else 128
-    tiles = q_rows * d * 2 + stages * 2 * kv_rows * d * 2
+    box_cols = row_bytes // 2
+    qk_cols = -(-d // box_cols) * box_cols
+    q_bytes = q_rows * qk_cols * 2
+    stage = kv_rows * (qk_cols + dv) * 2
+    stages = min(4, (SMEM_MAX - 1024 - 8 - q_bytes) // (stage + 16))
     return {"q_rows": q_rows, "kv_rows": kv_rows, "stages": stages,
-            "box_row_bytes": row_bytes, "consumer_rows": 64,
-            "smem_bytes": tiles + 8 * (2 * stages + 1) + 1024}
+            "box_row_bytes": row_bytes, "qk_cols": qk_cols,
+            "consumer_rows": 64,
+            "smem_bytes": q_bytes + stages * stage + 8 * (2 * stages + 1)
+            + 1024}
 
 
-def f32_tile_plan(d: int) -> dict:
-    """The f32 kernel's tiles at head dim ``d``, as ``csrc`` fixes them:
-    query rows a block (8 warps of 16), keys a KV tile, ring stages, the
-    row strides in floats of Q and K (d + 16) and of V (d + 4), and the
-    dynamic shared memory a block takes (Q, and the ring of K and V
-    tiles)."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
-    q_rows, kv_rows, stages = 128, 64, 2
-    qk_stride, v_stride = d + 16, d + 4
+def f32_tile_plan(d: int, dv: int) -> dict:
+    """The f32 kernel's tiles at head dims ``(d, dv)``, as ``csrc`` fixes
+    them: query rows a block (warps of 16: 8, or 4 at D 256), keys a KV
+    tile (64, or 32 at D 256), ring stages, the row strides in floats of Q
+    and K (d + 16) and of V (dv + 4), and the dynamic shared memory a
+    block takes (Q, and the ring of K and V tiles)."""
+    _check_pair(d, dv)
+    q_rows, kv_rows, stages = (64, 32, 2) if d == 256 else (128, 64, 2)
+    qk_stride, v_stride = d + 16, dv + 4
     floats = q_rows * qk_stride + stages * kv_rows * (qk_stride + v_stride)
     return {"q_rows": q_rows, "kv_rows": kv_rows, "stages": stages,
             "warps": q_rows // 16, "qk_stride": qk_stride,
             "v_stride": v_stride, "smem_bytes": 4 * floats}
+
+
+def kernel_window(window: Optional[int], S: int) -> int:
+    """The window as the kernels take it: keys with query - key >= window
+    are masked, so S stands for no window; a window below 1 (the
+    reference's rows of -1e30, averaged uniformly where no key is left)
+    passes as itself, cut to [-S, S], where every value masks as it
+    would."""
+    return S if window is None else max(-S, min(window, S))
 
 
 def load_library() -> ctypes.CDLL:
@@ -67,13 +92,13 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build_all({"flash_attention": SOURCE})
                           ["flash_attention"])
-        lib.fa_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        lib.fa_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.fa_launch.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
         for fn in (lib.fa_bf16_smem_bytes, lib.fa_f32_smem_bytes):
-            fn.argtypes = [ctypes.c_int]
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -95,25 +120,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v lie on different devices")
 
 
-def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window: Optional[int] = None) -> None:
-    """Raise on what the CUDA kernels do not take: a V head dim unlike
-    q's and k's, head dims outside ``HEAD_DIMS``, a window below 1 (the
-    plain version then averages every key uniformly, as the reference
-    does; the kernels read a window <= 0 as none), dtypes, and for bf16
-    (TMA) a data pointer off a 16-byte boundary. Takes tensors already
-    made contiguous."""
-    D = q.shape[-1]
-    if v.shape[-1] != D:
-        raise ValueError(f"the kernel takes v's head dim equal to q's and "
-                         f"k's: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {D} "
-                         f"(q {tuple(q.shape)})")
-    if window is not None and window < 1:
-        raise ValueError(f"the kernel takes a window of at least 1, not "
-                         f"{window}")
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> None:
+    """Raise on what the CUDA kernels do not take: head dims (q's and k's
+    D, v's Dv) outside ``HEAD_DIMS``, dtypes, and for bf16 (TMA) a data
+    pointer off a 16-byte boundary. Takes tensors already made
+    contiguous."""
+    pair = (q.shape[-1], v.shape[-1])
+    if pair not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dims (D, Dv) in "
+                         f"{HEAD_DIMS}, not {pair}: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("the kernel takes q, k, v all f32 or all bf16, not "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -132,11 +149,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S, Dv) in q's dtype.
 
     ``q_block`` and ``kv_block`` keep the JAX signature: the plain path
-    ignores them, and the kernels take their own tiles (bf16: 128 x 128,
-    ``tile_plan``; f32: 128 x 64, ``f32_tile_plan``; any S, ragged edges
-    masked). The kernels
-    take f32 or bf16, Dv = D in {32, 64, 128}, and a window of at least 1
-    (``check_kernel_inputs``)."""
+    ignores them, and the kernels take their own tiles (``tile_plan``,
+    ``f32_tile_plan``; any S, ragged edges masked). The kernels take f32
+    or bf16 at the (D, Dv) pairs of ``HEAD_DIMS``
+    (``check_kernel_inputs``), and any window (``kernel_window``)."""
     del q_block, kv_block
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -145,15 +161,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     B, Hq, S, D = q.shape
+    Dv = v.shape[-1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    check_kernel_inputs(q, k, v, window)
+    check_kernel_inputs(q, k, v)
     lib = load_library()
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, S, Dv))
     scale = scale if scale is not None else D ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), _DTYPES[q.dtype], B, Hq, k.shape[1],
-                        S, D, scale, int(causal), window or 0, stream)
+                        S, D, Dv, scale, int(causal),
+                        kernel_window(window, S), stream)
     if err:
         raise RuntimeError("flash attention kernel launch failed: "
                            f"{lib.fa_error_string(err).decode()}")

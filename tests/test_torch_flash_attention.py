@@ -1,9 +1,11 @@
 """The port's flash attention entry point against the JAX package's: the
 port's plain path (``flash_attention`` on CPU tensors) against the Pallas
 kernel in interpret mode and against the JAX reference, on the shapes of
-tests/test_kernels.py and on the cases the CUDA kernel treats apart: no
-causal mask, an explicit scale, a ragged length, and a window under which a
-row's first KV tile is wholly masked.
+tests/test_kernels.py, on gemma-2b's head dim 256 with one KV head, on
+minicpm3-4b's MLA (q and k at 96, v at 64), and on the cases the CUDA
+kernel treats apart: no causal mask, an explicit scale, a ragged length, a
+window under which a row's first KV tile is wholly masked, and a window
+below 1.
 
 Tolerances are the JAX kernel tests' own: 3e-5 in f32 (the two frameworks
 sum in other orders), 3e-2 in bf16 (one bf16 rounding of the output).
@@ -14,8 +16,10 @@ Pallas kernel, to show that the bf16 tolerance admits the design; one of
 the f32 kernel's arithmetic (each product as three TF32 products of
 operands split into tf32 hi and lo parts, by bit masking) is held against
 the JAX reference and the Pallas kernel at the unchanged f32 tolerance,
-and one TF32 product a multiply shown to miss it; and the wrapper's tile
-plans and input checks are tested.
+and one TF32 product a multiply shown to miss it; both emulations take
+each supported (D, Dv) pair's tiles from the wrapper's tile plans and the
+window as the wrapper encodes it; and the tile plans, the window's
+encoding and the input checks are tested.
 """
 import numpy as np
 import pytest
@@ -50,13 +54,18 @@ EXTRA_CASES = {
     # the first 32-key tile (0..31) is wholly masked
     "first_tile_masked": (1, 2, 1, 64, 32, 20, 32, 32, True, None),
     "ragged_length": (1, 4, 2, 40, 64, 16, 512, 512, True, None),
+    # gemma-2b's head dim (256) on one KV head (MQA): causal, windowed,
+    # and not causal with a scale
+    "d256_causal": (1, 4, 1, 64, 256, None, 32, 32, True, None),
+    "d256_window": (1, 4, 1, 96, 256, 24, 32, 32, True, None),
+    "d256_not_causal_scale": (1, 4, 1, 64, 256, None, 32, 32, False, 0.2),
 }
 
 
-def _inputs(B, Hq, KVH, S, D, dtype, seed=0):
+def _inputs(B, Hq, KVH, S, D, dtype, seed=0, Dv=None):
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal(s).astype(np.float32)
-            for s in ((B, Hq, S, D), (B, KVH, S, D), (B, KVH, S, D))]
+            for s in ((B, Hq, S, D), (B, KVH, S, D), (B, KVH, S, Dv or D))]
     jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
     tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
     return jx, tx
@@ -67,8 +76,9 @@ def _err(got, want) -> float:
                         - np.asarray(want, np.float32)).max())
 
 
-def _run(B, Hq, KVH, S, D, win, qb, kb, dtype, causal=True, scale=None):
-    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, dtype)
+def _run(B, Hq, KVH, S, D, win, qb, kb, dtype, causal=True, scale=None,
+         Dv=None):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, dtype, Dv=Dv)
     kw = dict(causal=causal, window=win, scale=scale)
     want_kernel = jax_flash(jq, jk, jv, q_block=qb, kv_block=kb,
                             interpret=True, **kw)
@@ -76,7 +86,7 @@ def _run(B, Hq, KVH, S, D, win, qb, kb, dtype, causal=True, scale=None):
     n0 = ops.flash_attention.launches
     got = ops.flash_attention(tq, tk, tv, q_block=qb, kv_block=kb, **kw)
     assert ops.flash_attention.launches == n0      # CPU: the plain version
-    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert got.dtype == tq.dtype and got.shape == (B, Hq, S, Dv or D)
     assert _err(got, want_kernel) < TOL[dtype]
     assert _err(got, want_ref) < TOL[dtype]
 
@@ -118,14 +128,36 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):                  # v's length differs
         ops.flash_attention(c, c[:, :1], torch.zeros((1, 1, 9, 16)))
     # a window below 1 is the reference's uniform average on the plain
-    # path; the kernels, which read it as no window, refuse it
+    # path, and the kernels take it (``kernel_window``)
     ops.flash_attention(c, c[:, :1], c[:, :1], window=0)
-    with pytest.raises(ValueError, match="window"):
-        ops.check_kernel_inputs(*(torch.zeros((1, 2, 8, 64))
-                                  for _ in range(3)), window=0)
+    ops.check_kernel_inputs(*(torch.zeros((1, 2, 8, 64)) for _ in range(3)))
 
 
-# (B, Hq, KVH, S, D, Dv): minicpm3-4b's MLA shape (q and k at 96, v at 64)
+@pytest.mark.parametrize("S", [1, 8, 40])
+def test_kernel_window_encodes_the_reference_mask(S):
+    """The wrapper hands the kernels ``kernel_window(window, S)``: S for no
+    window, a window below 1 as itself, cut to [-S, S]. Under the kernels'
+    rule (keys with query - key >= window masked, and key > query when
+    causal) that is the plain version's mask for every window."""
+    assert ops.kernel_window(None, S) == S
+    assert [ops.kernel_window(w, S) for w in (0, -3, 1, S, S + 5, -S - 9)] \
+        == [0, max(-3, -S), 1, S, S, -S]
+    pos = torch.arange(S)
+    diff = pos[:, None] - pos[None, :]
+    for causal in (True, False):
+        for window in (None, 1, 3, S - 1, S, S + 7, 0, -1, -4, -S, -S - 9):
+            want = torch.ones((S, S), dtype=torch.bool)
+            if causal:
+                want &= diff >= 0
+            if window is not None:
+                want &= diff < window
+            got = (diff < ops.kernel_window(window, S)) & \
+                ((diff >= 0) if causal else True)
+            assert torch.equal(got, want), (causal, window)
+
+
+# (B, Hq, KVH, S, D, Dv): minicpm3-4b's MLA shape (q and k at 96, v at 64),
+# which the kernels take, and one they do not
 DV_CASES = [(1, 2, 1, 64, 96, 64), (2, 4, 2, 40, 32, 16)]
 
 
@@ -146,8 +178,12 @@ def test_v_head_dim_unlike_k_matches_jax_kernel(B, Hq, KVH, S, D, Dv, dtype):
         assert got.shape == (B, Hq, S, Dv) == want.shape
         assert _err(got, want) < TOL[dtype]
         assert _err(got, jax_reference(jq, jk, jv, **kw)) < TOL[dtype]
-    with pytest.raises(ValueError, match=rf"v \({B}, {KVH}, {S}, {Dv}\)"):
+    if (D, Dv) in ops.HEAD_DIMS:
         ops.check_kernel_inputs(tq, tk, tv)
+    else:
+        with pytest.raises(ValueError,
+                           match=rf"v \({B}, {KVH}, {S}, {Dv}\)"):
+            ops.check_kernel_inputs(tq, tk, tv)
 
 
 @pytest.mark.parametrize("window", [0, -3])
@@ -167,56 +203,70 @@ def test_window_below_one_matches_jax(window):
 
 # ---------------------------------------------- the bf16 kernel's rounding
 # What csrc/flash_attention.cu's bf16 path computes, step by step, in f32
-# torch: 128-row query blocks; of each, only the 128-key tiles holding a key
-# some row may see, in order; scores q.k^T in f32, then scaled by
-# scale * log2(e), masked entries -1e30; m, l and acc in f32 with exp2;
+# torch: query blocks of ``tile_plan``'s rows; of each, only the KV tiles
+# (``tile_plan``'s keys: 128, or 64 at D 256) holding a key some row may
+# see, in order (every tile under a window below 1, which ``kernel_window``
+# passes as itself); scores q.k^T in f32, then scaled by scale * log2(e),
+# masked entries -1e30, keys past S -inf; m, l and acc in f32 with exp2;
 # p rounded to bf16 before p.v (v exact in bf16, products summed in f32),
 # l summed from the f32 p; out = acc / max(l, 1e-30) in bf16.
-KERNEL_ROWS = KERNEL_KEYS = 128
 LOG2E = 1.4426950408889634
 
 
-def _emulate_bf16_kernel(q, k, v, *, causal=True, window=None, scale=None):
+def _emulate_kernel(q, k, v, *, rows, keys, qk, pv, causal=True,
+                    window=None, scale=None):
+    """The kernels' tiling and online softmax over (rows x keys) tiles, in
+    f32 torch; ``qk(q, k^T)`` and ``pv(p, v)`` are their products."""
     B, Hq, S, D = q.shape
+    Dv = v.shape[-1]
     G = Hq // k.shape[1]
+    w = ops.kernel_window(window, S)
     scale_log2 = (scale if scale is not None else D ** -0.5) * LOG2E
     qf = q.float()
     kf = torch.repeat_interleave(k, G, dim=1).float()
     vf = torch.repeat_interleave(v, G, dim=1).float()
-    out = torch.empty_like(q)
-    for q0 in range(0, S, KERNEL_ROWS):
-        rows = torch.arange(q0, q0 + KERNEL_ROWS)
-        qb = torch.zeros((B, Hq, KERNEL_ROWS, D))
-        qb[:, :, :min(KERNEL_ROWS, S - q0)] = qf[:, :, q0:q0 + KERNEL_ROWS]
-        k_lo = max(0, q0 - window + 1) if window else 0
-        k_hi = min(S, q0 + KERNEL_ROWS) if causal else S
-        m = torch.full((B, Hq, KERNEL_ROWS), -1e30)
-        l = torch.zeros((B, Hq, KERNEL_ROWS))
-        acc = torch.zeros((B, Hq, KERNEL_ROWS, D))
-        for k0 in range(k_lo // KERNEL_KEYS * KERNEL_KEYS, k_hi,
-                        KERNEL_KEYS):
-            keys = torch.arange(k0, k0 + KERNEL_KEYS)
-            kb = torch.zeros((B, Hq, KERNEL_KEYS, D))
-            vb = torch.zeros((B, Hq, KERNEL_KEYS, D))
-            kb[:, :, :min(KERNEL_KEYS, S - k0)] = kf[:, :, k0:k0 + KERNEL_KEYS]
-            vb[:, :, :min(KERNEL_KEYS, S - k0)] = vf[:, :, k0:k0 + KERNEL_KEYS]
-            s = (qb @ kb.transpose(-1, -2)) * scale_log2
-            ok = keys[None, :] < S
+    R, K = rows, keys
+    out = torch.empty((B, Hq, S, Dv), dtype=q.dtype)
+    for q0 in range(0, S, R):
+        r = torch.arange(q0, q0 + R)
+        qb = torch.zeros((B, Hq, R, D))
+        qb[:, :, :min(R, S - q0)] = qf[:, :, q0:q0 + R]
+        k_lo, k_hi = 0, S
+        if w >= 1:
+            k_lo = max(0, q0 - w + 1)
+            k_hi = min(S, q0 + R) if causal else S
+        m = torch.full((B, Hq, R), -1e30)
+        l = torch.zeros((B, Hq, R))
+        acc = torch.zeros((B, Hq, R, Dv))
+        for k0 in range(k_lo // K * K, k_hi, K):
+            c = torch.arange(k0, k0 + K)
+            kb = torch.zeros((B, Hq, K, D))
+            vb = torch.zeros((B, Hq, K, Dv))
+            kb[:, :, :min(K, S - k0)] = kf[:, :, k0:k0 + K]
+            vb[:, :, :min(K, S - k0)] = vf[:, :, k0:k0 + K]
+            s = qk(qb, kb.transpose(-1, -2)) * scale_log2
+            ok = r[:, None] - c[None, :] < w
             if causal:
-                ok = ok & (rows[:, None] >= keys[None, :])
-            if window:
-                ok = ok & (rows[:, None] - keys[None, :] < window)
+                ok = ok & (r[:, None] >= c[None, :])
             s = torch.where(ok, s, torch.tensor(-1e30))
+            s = torch.where(c[None, :] < S, s, torch.tensor(float("-inf")))
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(s - m_new[..., None])
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + \
-                p.to(torch.bfloat16).float() @ vb
+            acc = acc * alpha[..., None] + pv(p, vb)
             m = m_new
         res = acc / torch.clamp(l, min=1e-30)[..., None]
-        out[:, :, q0:q0 + KERNEL_ROWS] = res[:, :, :S - q0].to(q.dtype)
+        out[:, :, q0:q0 + R] = res[:, :, :S - q0].to(q.dtype)
     return out
+
+
+def _emulate_bf16_kernel(q, k, v, **kw):
+    plan = ops.tile_plan(q.shape[-1], v.shape[-1])
+    return _emulate_kernel(
+        q, k, v, rows=plan["q_rows"], keys=plan["kv_rows"],
+        qk=torch.matmul,
+        pv=lambda p, vb: p.to(torch.bfloat16).float() @ vb, **kw)
 
 
 EMULATION_CASES = {
@@ -226,68 +276,115 @@ EMULATION_CASES = {
     "first_tile_masked_128": (1, 2, 1, 256, 64, 40, 128, 128, True, None),
     # 9 tiles of 128 keys, a window: the last row block visits all 9
     "nine_tiles_window": (1, 4, 2, 1152, 64, 1000, 128, 128, True, None),
+    # D 256 on one KV head: a ragged last tile of the bf16 kernel's 64
+    # keys, and a band whose first visited tile is wholly masked
+    "d256_ragged": (1, 4, 1, 224, 256, None, 32, 32, True, None),
+    "d256_first_tile_masked": (1, 2, 1, 256, 256, 40, 64, 64, True, None),
+    # a window below 1: causal, every row averages all S values; not
+    # causal, rows see the keys at least 1 - window ahead, the last none
+    "window_zero": (1, 4, 2, 192, 64, 0, 64, 64, True, None),
+    "window_negative_not_causal": (1, 4, 2, 192, 32, -5, 64, 64, False,
+                                   None),
+}
+# minicpm3-4b's MLA: q and k at 96, v at 64 (a ragged 128-key tile, the
+# block's scale; and a band under GQA), as (case, Dv)
+EMULATION_DV_CASES = {
+    "mla_96_64": ((1, 4, 4, 192, 96, None, 64, 64, True, 96 ** -0.5), 64),
+    "mla_96_64_window": ((2, 4, 2, 192, 96, 50, 64, 64, True, None), 64),
+    "mla_96_64_window_zero": ((1, 2, 1, 64, 96, 0, 32, 32, False, None),
+                              64),
 }
 
 
-@pytest.mark.parametrize("case", sorted(EMULATION_CASES))
+def _emulation_case(name):
+    """-> (B, Hq, KVH, S, D, window, qb, kb, causal, scale, Dv)"""
+    if name in EMULATION_DV_CASES:
+        case, dv = EMULATION_DV_CASES[name]
+        return (*case, dv)
+    case = EMULATION_CASES[name]
+    return (*case, case[4])
+
+
+ALL_EMULATION_CASES = sorted(EMULATION_CASES) + sorted(EMULATION_DV_CASES)
+
+
+@pytest.mark.parametrize("case", ALL_EMULATION_CASES)
 def test_bf16_kernel_rounding_is_inside_the_tolerance(case):
-    B, Hq, KVH, S, D, win, qb, kb, causal, scale = EMULATION_CASES[case]
-    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "bfloat16")
+    B, Hq, KVH, S, D, win, qb, kb, causal, scale, Dv = _emulation_case(case)
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "bfloat16", Dv=Dv)
     kw = dict(causal=causal, window=win, scale=scale)
     want = jax_flash(jq, jk, jv, q_block=qb, kv_block=kb, interpret=True,
                      **kw)
     got = _emulate_bf16_kernel(tq, tk, tv, **kw)
-    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Hq, S, Dv)
     assert _err(got, want) < TOL["bfloat16"]
     # and the emulation is of the same function as the plain version
     assert _err(got, flash_attention_ref(tq, tk, tv, **kw).float().numpy()) \
         < TOL["bfloat16"]
 
 
-@pytest.mark.parametrize("d", ops.HEAD_DIMS)
-def test_tile_plan_fits_a_block(d):
-    plan = ops.tile_plan(d)
-    assert plan["smem_bytes"] <= 232_448   # the most a block may use
+@pytest.mark.parametrize("d,dv", ops.HEAD_DIMS)
+def test_tile_plan_fits_a_block(d, dv):
+    plan = ops.tile_plan(d, dv)
+    assert plan["smem_bytes"] <= ops.SMEM_MAX   # the most a block may use
     for key in ("q_rows", "kv_rows", "consumer_rows"):
         assert plan[key] % 64 == 0             # wgmma tiles are 64 rows
     assert plan["q_rows"] == 2 * plan["consumer_rows"]   # two consumers
     assert plan["stages"] >= 2                 # a ring: load j+1 during j
     assert plan["box_row_bytes"] in (64, 128)  # a TMA / wgmma swizzle
-    tiles = plan["q_rows"] * d * 2 + plan["stages"] * 2 * plan["kv_rows"] \
-        * d * 2
+    box_cols = plan["box_row_bytes"] // 2
+    # Q and K in whole boxes (D 96: two, the last 32 columns zero), V too
+    assert plan["qk_cols"] % box_cols == 0 and \
+        0 <= plan["qk_cols"] - d < box_cols and dv % box_cols == 0
+    assert d % 16 == 0                         # whole k-steps of wgmma
+    tiles = plan["q_rows"] * plan["qk_cols"] * 2 + plan["stages"] * \
+        plan["kv_rows"] * (plan["qk_cols"] + dv) * 2
     assert tiles < plan["smem_bytes"] <= tiles + 1024 + 8 * 64
-    with pytest.raises(ValueError, match="head dims"):
-        ops.tile_plan(96)
+    # a stage more would not fit (or the ring is at its 4)
+    assert plan["stages"] == 4 or tiles + plan["kv_rows"] * (
+        plan["qk_cols"] + dv) * 2 + 1024 + 8 * 64 > ops.SMEM_MAX
+    for pair in ((80, 80), (32, 16), (64, 96)):
+        with pytest.raises(ValueError, match="head dims"):
+            ops.tile_plan(*pair)
 
 
 def test_kernel_input_checks():
-    def qkv(dtype, d=16, offset=0):
+    def qkv(dtype, d=16, offset=0, dv=None):
         n = 2 * 8 * d
         base = torch.zeros(n + offset, dtype=dtype)
         return base[offset:].view(1, 2, 8, d), torch.zeros(
-            (1, 1, 8, d), dtype=dtype), torch.zeros((1, 1, 8, d), dtype=dtype)
+            (1, 1, 8, d), dtype=dtype), torch.zeros((1, 1, 8, dv or d),
+                                                    dtype=dtype)
     ops.check_kernel_inputs(*qkv(torch.bfloat16, 64))
     ops.check_kernel_inputs(*qkv(torch.float32, 32, offset=1))  # f32: no TMA
+    # gemma-2b's (256, 256) and minicpm3-4b's (96, 64)
+    for d, dv in ((256, 256), (96, 64)):
+        ops.check_kernel_inputs(*qkv(torch.bfloat16, d, dv=dv))
+        ops.check_kernel_inputs(*qkv(torch.float32, d, offset=1, dv=dv))
     with pytest.raises(ValueError, match="16-byte aligned"):
         ops.check_kernel_inputs(*qkv(torch.bfloat16, 64, offset=1))
-    with pytest.raises(ValueError, match="head dims"):
-        ops.check_kernel_inputs(*qkv(torch.bfloat16, 16))
+    # the rest are refused, the message naming the pairs the kernels take
+    for d, dv in ((16, 16), (80, 80), (96, 96), (64, 96), (256, 128)):
+        with pytest.raises(ValueError, match=r"head dims \(D, Dv\) in "
+                           r"\(\(32, 32\), .*\(256, 256\), \(96, 64\)\), "
+                           rf"not \({d}, {dv}\)"):
+            ops.check_kernel_inputs(*qkv(torch.bfloat16, d, dv=dv))
     with pytest.raises(ValueError, match="f32 or all bf16"):
         ops.check_kernel_inputs(*qkv(torch.float16, 64))
 
 
 # ----------------------------------------------- the f32 kernel's 3xTF32
-# What csrc/flash_attention.cu's f32 path computes, in f32 torch: 128-row
-# query blocks over 64-key tiles; each product (q.k^T, then p.v) taken as
-# three TF32 products, hi.hi + hi.lo + lo.hi, of operands split as
-# hi = tf32(x), lo = tf32(x - hi), lo.lo dropped; tf32(x) rounds to 10
-# mantissa bits, to nearest with ties away from zero (the kernel's
-# hopper::to_tf32, cvt.rna's rounding), here by the same bit masking.
-# Scores are scaled by scale * log2(e) after the product, masked entries
-# -1e30, the online softmax in f32 with exp2. The CUDA kernel also keeps
-# each sum short on the tensor cores, whose adder truncates; that is not
-# emulated (the card's edge cases in chip_smoke.py hold it).
-F32_KERNEL_ROWS, F32_KERNEL_KEYS = 128, 64
+# What csrc/flash_attention.cu's f32 path computes, in f32 torch: query
+# blocks over KV tiles as ``f32_tile_plan`` fixes them (128 x 64; 64 x 32
+# at D 256), in ``_emulate_kernel``'s order and masking; each product
+# (q.k^T, then p.v) taken as three TF32 products, hi.hi + hi.lo + lo.hi, of
+# operands split as hi = tf32(x), lo = tf32(x - hi), lo.lo dropped;
+# tf32(x) rounds to 10 mantissa bits, to nearest with ties away from zero
+# (the kernel's hopper::to_tf32, cvt.rna's rounding), here by the same bit
+# masking. Scores are scaled by scale * log2(e) after the product, the
+# online softmax in f32 with exp2. The CUDA kernel also keeps each sum
+# short on the tensor cores, whose adder truncates; that is not emulated
+# (the card's edge cases in chip_smoke.py hold it).
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -306,46 +403,12 @@ def _three_products(a: torch.Tensor, b: torch.Tensor,
     return ah @ bh + (ah @ bl + al @ bh)
 
 
-def _emulate_f32_kernel(q, k, v, *, causal=True, window=None, scale=None,
-                        terms=3):
-    B, Hq, S, D = q.shape
-    G = Hq // k.shape[1]
-    scale_log2 = (scale if scale is not None else D ** -0.5) * LOG2E
-    kf = torch.repeat_interleave(k, G, dim=1)
-    vf = torch.repeat_interleave(v, G, dim=1)
-    R, K = F32_KERNEL_ROWS, F32_KERNEL_KEYS
-    out = torch.empty_like(q)
-    for q0 in range(0, S, R):
-        rows = torch.arange(q0, q0 + R)
-        qb = torch.zeros((B, Hq, R, D))
-        qb[:, :, :min(R, S - q0)] = q[:, :, q0:q0 + R]
-        k_lo = max(0, q0 - window + 1) if window else 0
-        k_hi = min(S, q0 + R) if causal else S
-        m = torch.full((B, Hq, R), -1e30)
-        l = torch.zeros((B, Hq, R))
-        acc = torch.zeros((B, Hq, R, D))
-        for k0 in range(k_lo // K * K, k_hi, K):
-            keys = torch.arange(k0, k0 + K)
-            kb = torch.zeros((B, Hq, K, D))
-            vb = torch.zeros((B, Hq, K, D))
-            kb[:, :, :min(K, S - k0)] = kf[:, :, k0:k0 + K]
-            vb[:, :, :min(K, S - k0)] = vf[:, :, k0:k0 + K]
-            s = _three_products(qb, kb.transpose(-1, -2), terms) * scale_log2
-            ok = keys[None, :] < S
-            if causal:
-                ok = ok & (rows[:, None] >= keys[None, :])
-            if window:
-                ok = ok & (rows[:, None] - keys[None, :] < window)
-            s = torch.where(ok, s, torch.tensor(-1e30))
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp2(m - m_new)
-            p = torch.exp2(s - m_new[..., None])
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + _three_products(p, vb, terms)
-            m = m_new
-        res = acc / torch.clamp(l, min=1e-30)[..., None]
-        out[:, :, q0:q0 + R] = res[:, :, :S - q0]
-    return out
+def _emulate_f32_kernel(q, k, v, *, terms=3, **kw):
+    plan = ops.f32_tile_plan(q.shape[-1], v.shape[-1])
+    product = lambda a, b: _three_products(a, b, terms)  # noqa: E731
+    return _emulate_kernel(q, k, v, rows=plan["q_rows"],
+                           keys=plan["kv_rows"], qk=product, pv=product,
+                           **kw)
 
 
 def test_tf32_rounds_to_nearest_ties_away():
@@ -360,37 +423,43 @@ def test_tf32_rounds_to_nearest_ties_away():
     assert not (_tf32(torch.randn(1000)).view(torch.int32) & 0x1fff).any()
 
 
-@pytest.mark.parametrize("case", sorted(EMULATION_CASES))
+@pytest.mark.parametrize("case", ALL_EMULATION_CASES)
 def test_f32_kernel_three_tf32_products_are_inside_the_tolerance(case):
-    B, Hq, KVH, S, D, win, qb, kb, causal, scale = EMULATION_CASES[case]
-    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "float32")
+    B, Hq, KVH, S, D, win, qb, kb, causal, scale, Dv = _emulation_case(case)
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "float32", Dv=Dv)
     kw = dict(causal=causal, window=win, scale=scale)
     got = _emulate_f32_kernel(tq, tk, tv, **kw)
-    assert got.dtype == torch.float32 and got.shape == tq.shape
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, S, Dv)
     assert _err(got, jax_reference(jq, jk, jv, **kw)) < TOL["float32"]
     assert _err(got, jax_flash(jq, jk, jv, q_block=qb, kv_block=kb,
                                interpret=True, **kw)) < TOL["float32"]
 
 
-def test_one_tf32_product_is_outside_the_tolerance():
-    """The split is what meets 3e-5: one TF32 product a multiply misses."""
-    B, Hq, KVH, S, D, win, qb, kb, causal, scale = EMULATION_CASES["fa_0"]
-    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "float32")
-    got = _emulate_f32_kernel(tq, tk, tv, terms=1)
-    assert _err(got, jax_reference(jq, jk, jv)) > TOL["float32"]
+@pytest.mark.parametrize("case", ["fa_0", "d256_causal", "mla_96_64"])
+def test_one_tf32_product_is_outside_the_tolerance(case):
+    """The split is what meets 3e-5: one TF32 product a multiply misses,
+    at each tile plan."""
+    B, Hq, KVH, S, D, win, qb, kb, causal, scale, Dv = _emulation_case(case)
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, Hq, KVH, S, D, "float32", Dv=Dv)
+    kw = dict(causal=causal, window=win, scale=scale)
+    got = _emulate_f32_kernel(tq, tk, tv, terms=1, **kw)
+    assert _err(got, jax_reference(jq, jk, jv, **kw)) > TOL["float32"]
 
 
-@pytest.mark.parametrize("d", ops.HEAD_DIMS)
-def test_f32_tile_plan_fits_a_block(d):
-    plan = ops.f32_tile_plan(d)
-    assert plan["smem_bytes"] <= 232_448   # the most a block may use
+@pytest.mark.parametrize("d,dv", ops.HEAD_DIMS)
+def test_f32_tile_plan_fits_a_block(d, dv):
+    plan = ops.f32_tile_plan(d, dv)
+    assert plan["smem_bytes"] <= ops.SMEM_MAX   # the most a block may use
     assert plan["q_rows"] == 16 * plan["warps"]    # m16 rows a warp
-    assert plan["kv_rows"] % 8 == 0 and plan["stages"] >= 2
+    assert plan["kv_rows"] % 32 == 0 and plan["stages"] >= 2
+    assert d % 16 == 0 and dv % 8 == 0   # whole k-steps, whole n8 tiles
     # conflict-free fragment loads: 16-byte loads of rows g, g + 1 (Q, K),
     # 4-byte loads of rows 2t, 2t + 1 at column g (V)
     assert plan["qk_stride"] % 32 == 16 and (2 * plan["v_stride"]) % 32 == 8
+    assert plan["qk_stride"] >= d and plan["v_stride"] >= dv
     floats = plan["q_rows"] * plan["qk_stride"] + plan["stages"] * \
         plan["kv_rows"] * (plan["qk_stride"] + plan["v_stride"])
     assert plan["smem_bytes"] == 4 * floats
-    with pytest.raises(ValueError, match="head dims"):
-        ops.f32_tile_plan(96)
+    for pair in ((80, 80), (32, 16), (64, 96)):
+        with pytest.raises(ValueError, match="head dims"):
+            ops.f32_tile_plan(*pair)
