@@ -6,7 +6,7 @@
 It builds the port's three CUDA libraries from the sources in the
 checkout (one nvcc each, all at once), logs each library's registers and
 spills as ptxas reports them (and fails if ptxas serialised a kernel's
-wgmma, or if one of the SSD scan's or the f32 flash kernels spills), and
+wgmma, or if one of the SSD scan's or the flash kernels spills), and
 holds each kernel against its plain torch version on edge cases: the
 fingerprint bit-exactly, flash attention (its f32 kernel, three TF32
 products a product on ``mma.sync``, and its bf16 ``wgmma`` kernel, at
@@ -22,7 +22,7 @@ granite-moe-3b-a800m width, then runs the serving half of the main path
 
 at the full width of yi-6b (dense, its depth cut to ``YI_SERVE_LAYERS``,
 3.8 GB of bf16 weights), mixtral-8x7b (moe, its depth cut to
-``MIXTRAL_LAYERS``, 12.1 GB), minicpm3-4b (mla, all 62 layers, 8.5 GB)
+``MIXTRAL_LAYERS``, 6.3 GB), minicpm3-4b (mla, all 62 layers, 8.5 GB)
 and hymba-1.5b (hybrid, 2.8 GB, 4096-token prompts), weights drawn on the
 card from a seeded generator. The smart followers
 (yi-6b, mixtral-8x7b, minicpm3-4b) pull from the trainer's store
@@ -167,6 +167,10 @@ HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 on the tensor cores
 TF32_TENSOR_OPS_PER_S = 495e12     # dense TF32 on the tensor cores
+# ex2 on the special function units: 16 a clock per SM (4 per sub-
+# partition), 132 SMs, at the 1.83 GHz at which 132 SMs' 4,096 dense bf16
+# flops a clock make the sheet's 989 TFLOP/s: 16 x 132 x 1.83e9 = 3.87e12
+EX2_PER_S = 3.87e12
 # the f32 kernels (flash attention's, the SSD scan's) take each product as
 # three TF32 products (3xTF32: hi.hi + hi.lo + lo.hi), their bound as such
 # beside the CUDA cores'
@@ -179,10 +183,12 @@ FP_OPS_PER_LANE = 9
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 2          # steps before each of the two saves
 # mixtral-8x7b at full width, depth cut: its 32 layers are 93.4 GB of bf16
-# params; 4 layers are 12.13 GB, the size of yi-6b's full tree
-MIXTRAL_LAYERS = 4
+# params; 2 layers are 6.33 GB. At 4 (12.13 GB) its path's saves, pulls
+# and fan-out took 141 and 174 s of whole runs of 1058 and 1349 s, against
+# the 1200 s limit (PERF.md §5)
+MIXTRAL_LAYERS = 2
 # yi-6b's serving path at full width, depth cut to keep the whole script
-# well inside its time limit; mixtral's path carries a 12.1 GB tree
+# well inside its time limit
 YI_SERVE_LAYERS = 8
 CARD_SHELL = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
@@ -261,17 +267,18 @@ def phase_build():
                                   for p in pairs),
           f"the flash kernels built are not one a dtype and pair: "
           f"{sorted(flash)}")
-    fa_f32 = {k: v for k, v in flash.items() if k.startswith("f32")}
-    check(all(k["spill_bytes"] == 0 for k in fa_f32.values()),
-          f"the f32 flash kernels spill: {fa_f32}")
-    plans = {f"{d}, {dv}": fa_ops.tile_plan(d, dv)["smem_bytes"]
+    check(all(k["spill_bytes"] == 0 for k in flash.values()),
+          f"a flash kernel spills: {flash}")
+    plans = {f"{d}, {dv}": fa_ops.built_tile_plan(d, dv)
              for d, dv in fa_ops.HEAD_DIMS}
     f32_plans = {f"{d}, {dv}": fa_ops.f32_tile_plan(d, dv)["smem_bytes"]
                  for d, dv in fa_ops.HEAD_DIMS}
     lib = fa_ops.load_library()
-    check(all(lib.fa_bf16_smem_bytes(d, dv) == plans[f"{d}, {dv}"]
-              for d, dv in fa_ops.HEAD_DIMS),
-          "ops.tile_plan disagrees with the kernel's shared memory")
+    for d, dv in fa_ops.HEAD_DIMS:
+        mirror = fa_ops.tile_plan(d, dv)
+        check(all(mirror[k] == v for k, v in plans[f"{d}, {dv}"].items()),
+              f"ops.tile_plan disagrees with the kernel's bf16 plan at "
+              f"({d}, {dv}): {mirror} against {plans[f'{d}, {dv}']}")
     check(all(lib.fa_f32_smem_bytes(d, dv) == f32_plans[f"{d}, {dv}"]
               for d, dv in fa_ops.HEAD_DIMS),
           "ops.f32_tile_plan disagrees with the kernel's shared memory")
@@ -294,7 +301,7 @@ def phase_build():
     log("build", seconds=secs, card=torch.cuda.get_device_name(0),
         cuda=torch.version.cuda, torch=torch.__version__,
         built=sorted(paths), ptxas=ptxas, flash_kernels=flash,
-        flash_bf16_smem_bytes=plans, flash_f32_smem_bytes=f32_plans,
+        flash_bf16_plans=plans, flash_f32_smem_bytes=f32_plans,
         ssd_smem_bytes=ssd_plans)
 
 
@@ -650,6 +657,14 @@ FA_EDGE_CASES = [
     (1, 4, 1, 700, 96, 64, None, False, 0.3),
     (1, 2, 1, 256, 96, 64, 40, True, None),
     (1, 4, 2, 300, 96, 64, -5, False, None),
+    # the bf16 plan at (256, 256), 80-key tiles on K and V rings of 2: S
+    # 208 = 2 x 80 + 48 (a ragged last tile) with the causal diagonal
+    # inside tiles 1 and 2, and a band whose lower edge cuts tiles; at
+    # (96, 64) a ragged 333 with a band edge inside tiles, and not causal
+    (1, 8, 1, 208, 256, 256, None, True, None),
+    (2, 4, 2, 333, 256, 256, 77, True, None),
+    (1, 8, 8, 333, 96, 64, 77, True, 96 ** -0.5),
+    (1, 4, 1, 208, 96, 64, None, False, 0.3),
 ]
 # B, S, H, P, G, N, chunk, |A| scale
 SSD_EDGE_CASES = [
@@ -683,6 +698,8 @@ FA_UNALIGNED_CASES = [
     (1, 4, 2, 1300, 64, 64, 1100, True, None),
     (1, 8, 1, 300, 256, 256, None, True, None),
     (2, 4, 2, 300, 96, 64, 100, True, None),
+    (1, 8, 1, 208, 256, 256, None, True, None),
+    (1, 8, 8, 333, 96, 64, 77, True, 96 ** -0.5),
 ]
 FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -831,7 +848,8 @@ def flash_bound(q, k, v, causal: bool, window) -> dict:
     2 Dv for p.v); q, k, v read once and o (B, Hq, S, Dv) written once. In
     f32 the operations are the kernel's three TF32 products each, over the
     TF32 tensor rate (``alu_bound_ms``: the flops alone over the CUDA
-    cores' f32 rate)."""
+    cores' f32 rate). Beside the bound, not in it: ``exp_bound_ms``, one
+    exp2 per unmasked pair over the special function units' rate."""
     B, Hq, S, D = q.shape
     Dv = v.shape[-1]
     pos = np.arange(S)
@@ -842,10 +860,12 @@ def flash_bound(q, k, v, causal: bool, window) -> dict:
         * q.element_size()
     flops = 2.0 * (D + Dv) * pairs
     if q.dtype == torch.bfloat16:
-        return _bound(nbytes, flops, q.dtype)
-    res = _bound(nbytes, F32_TF32_PRODUCTS * flops, q.dtype, tf32=True)
-    res.update(flops=flops, alu_bound_ms=max(
-        nbytes / HBM_BYTES_PER_S, flops / ALU32_OPS_PER_S) * 1e3)
+        res = _bound(nbytes, flops, q.dtype)
+    else:
+        res = _bound(nbytes, F32_TF32_PRODUCTS * flops, q.dtype, tf32=True)
+        res.update(flops=flops, alu_bound_ms=max(
+            nbytes / HBM_BYTES_PER_S, flops / ALU32_OPS_PER_S) * 1e3)
+    res.update(pairs=pairs, exp_bound_ms=pairs / EX2_PER_S * 1e3)
     return res
 
 

@@ -36,12 +36,15 @@
 // 32, KV 4, S 4096, D 128, causal) that is 137.5 GFLOP, 0.139 ms, against
 // 0.014 ms for its 46 MB of q, k, v and o; at hymba-1.5b's prefill (B 2,
 // Hq 25, KV 5, S 4096, D 64, window 2048) 80.5 GFLOP, 0.081 ms, against
-// 0.019 ms. (The f32 design below takes three TF32 products, each at half
-// that rate, for each product.) What this design does about it:
+// 0.019 ms. Beside it each pair pays one exp2 on the special function
+// units (16 a clock a SM: 3.87e12/s), 80% of the tensor term at (96, 64)
+// (D + Dv 160: 320 flops an exp2) and 25% at (256, 256). (The f32 design
+// below takes three TF32 products, each at half that rate, for each
+// product.) What this design does about it:
 //   * Both products are wgmma (bf16 x bf16 -> f32, m64nNk16). A block is
 //     128 query rows and three warpgroups: one producer, two consumers of
-//     64 rows each. S = Q.K^T is m64n128 over a 128-key tile (m64n64 over
-//     64 keys at D 256) with Q and K read from shared memory. P is rounded
+//     64 rows each. S = Q.K^T is m64n128 over a 128-key tile (m64n80 over
+//     80 keys at D 256) with Q and K read from shared memory. P is rounded
 //     to bf16 in registers: the f32 accumulator's fragment is, pair by
 //     pair, the A fragment of the next wgmma, so P never touches shared
 //     memory. O += P.V reads V in its natural keys x Dv layout through the
@@ -58,9 +61,29 @@
 //   * Inside a consumer, tile j's softmax runs while the tensor cores do
 //     P.V of tile j - 1 (issued together with S of tile j), so a tile's
 //     stage is released one tile later: hence 3 stages at D 128, where 2
-//     would expose each load. At D 256 only 2 fit beside the 64 KB Q tile
-//     (and 64-key tiles: 128-key ones would take 128 KB a stage); the O
-//     accumulator is then 128 registers a consumer thread, S 32, P 16.
+//     would expose each load.
+//   * D 256 (gemma-2b), where only 2 stages fit beside the 64 KB Q tile,
+//     has a plan of its own (Plan::kSplit):
+//     - K and V on rings of their own, each stage with its own full and
+//       empty barrier, the producer loading K of tile j + 1 before V of
+//       tile j. The consumers free K's stage of tile j and V's of tile
+//       j - 1 once P.V of tile j - 1 is in, so K of tile j + 1 loads while
+//       tile j computes and V of tile j while S of tile j + 1 does; on one
+//       ring of 2 (K and V together) tile j + 1's stage was freed just
+//       when it was needed.
+//     - 80-key tiles: Q 64 KB and two stages of K and V at 40 KB a tile.
+//       O is 128 registers a consumer thread, S 40, P 20. S's SS wgmma
+//       (m64n80k16) reads 4.5 KB of shared memory for 40 tensor clocks,
+//       115 of the 128 bytes a clock shared memory gives.
+//     - The two consumers take turns to issue their products (named
+//       barriers kTurnBar + consumer: bar.sync takes the turn, bar.arrive
+//       hands it on), so one's softmax runs while the other's products do.
+//     - L2 -> SM: each block reads the K and V tiles up to its diagonal,
+//       562 MB a call at gemma-2b's shape (B 1, Hq 8, KV 1, S 4096). Packing
+//       its 8 query heads into a block's rows would not cut that (the bytes
+//       a flop follow the rows a block holds, 128 either way); a TMA
+//       multicast across a cluster of one KV head's blocks would, and is
+//       not taken.
 //   * The tensor maps are 3-D (width, S, B * heads): a ragged last tile
 //     is zero-filled at S, never read from the next head. Rows of 128
 //     bytes (64 columns) use the 128-byte swizzle, D 32's 64-byte rows the
@@ -77,8 +100,8 @@
 //   * Query tiles launch heaviest first (the last tile of every head in
 //     the first wave), so the causal tail does not idle the last wave.
 //   Shared memory (Q, the ring, barriers, 1 KB to align): 74,824 B at D
-//   32, 148,552 at D 64, 230,456 at D 128, 197,672 at D 256, 230,472 at
-//   (96, 64). One block (384 threads) a SM.
+//   32, 148,552 at D 64, 230,456 at D 128, 230,472 at D 256 (two rings),
+//   230,472 at (96, 64). One block (384 threads) a SM.
 //
 // ---- fa_kernel, the f32 path.
 //
@@ -509,12 +532,17 @@ constexpr int kBQ = 128;         // query rows a block: 2 consumers x 64
 constexpr int kThreads = 384;    // producer warpgroup + 2 consumers
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
+constexpr uint32_t kTurnBar = 1;   // named barriers 1 and 2: the consumers'
+                                   // turns to issue (kSplit)
 
 // the tile plan for head dims (D, DV) (ops.py::tile_plan mirrors it)
 template <int D, int DV>
 struct Plan {
   static_assert((D == 32) == (DV == 32), "one swizzle for every tile");
-  static constexpr int kBK = D == 256 ? 64 : 128;       // keys a KV tile
+  // D 256: K and V on rings of their own, the consumers taking turns
+  static constexpr bool kSplit = D == 256;
+  static constexpr int kRings = kSplit ? 2 : 1;
+  static constexpr int kBK = kSplit ? 80 : 128;         // keys a KV tile
   static constexpr int kRowBytes = D == 32 ? 64 : 128;  // a swizzled box row
   static constexpr int kBoxCols = kRowBytes / 2;
   // column boxes of Q and K (2 at D 96: columns 96..127 zero) and of V
@@ -525,15 +553,18 @@ struct Plan {
   static constexpr int kKVBoxBytes = kBK * kRowBytes;  // kBK rows of a box
   static constexpr int kQBytes = kQKBoxes * kQBoxBytes;
   static constexpr int kKBytes = kQKBoxes * kKVBoxBytes;    // one K tile
-  static constexpr int kStageBytes = kKBytes + kVBoxes * kKVBoxBytes;
-  // as many stages as fit beside Q, two 8-byte barriers each, Q's barrier
-  // and 1024 bytes to align the base; at most 4
+  static constexpr int kVBytes = kVBoxes * kKVBoxBytes;     // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  // as many stages as fit beside Q, two 8-byte barriers a ring each, Q's
+  // barrier and 1024 bytes to align the base; at most 4
   static constexpr int kFit =
-      (kSmemMax - 1024 - 8 - kQBytes) / (kStageBytes + 16);
+      (kSmemMax - 1024 - 8 - kQBytes) / (kStageBytes + 16 * kRings);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
-  static constexpr int kSmemBytes = kBarOffset + 8 * (2 * kStages + 1) + 1024;
+  static constexpr int kSmemBytes =
+      kBarOffset + 8 * (2 * kRings * kStages + 1) + 1024;
   static_assert(kStages >= 2 && kSmemBytes <= kSmemMax, "a ring fits");
+  static_assert(kKVBoxBytes % 1024 == 0, "boxes on the swizzle's 1024 B");
 };
 
 // shared-memory address of ring stage s's K tile (its V tile follows)
@@ -555,7 +586,7 @@ __device__ __forceinline__ void qk_mma(float (&sc)[P::kBK / 2], uint32_t q,
     const uint64_t b = hopper::make_desc(k + box * P::kKVBoxBytes + col, 16,
                                          8 * P::kRowBytes, P::kMode);
     if constexpr (P::kBK == 128) hopper::wgmma_ss_m64n128(sc, a, b, kk > 0);
-    if constexpr (P::kBK == 64) hopper::wgmma_ss_m64n64(sc, a, b, kk > 0);
+    if constexpr (P::kBK == 80) hopper::wgmma_ss_m64n80(sc, a, b, kk > 0);
   }
 }
 
@@ -680,8 +711,11 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = q_s + P::kBarOffset;
-  // full[s] at bars + 8 s, empty[s] at bars + 8 (kStages + s), then q_full
-  const uint32_t q_full = bars + 16 * P::kStages;
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (kStages + s) (K's under
+  // kSplit; V's full and empty follow), then q_full
+  const uint32_t v_full = bars + 16 * P::kStages;
+  const uint32_t v_empty = v_full + 8 * P::kStages;
+  const uint32_t q_full = bars + 16 * P::kRings * P::kStages;
 
   const int bh = blockIdx.x;
   const int b = bh / Hq;
@@ -700,6 +734,10 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int s = 0; s < P::kStages; ++s) {
       mbar_init(bars + 8 * s, 1);
       mbar_init(bars + 8 * (P::kStages + s), 8);   // the 8 consumer warps
+      if constexpr (P::kSplit) {
+        mbar_init(v_full + 8 * s, 1);
+        mbar_init(v_empty + 8 * s, 8);
+      }
     }
     mbar_init(q_full, 1);
     mbar_fence_init();
@@ -716,6 +754,32 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int c = 0; c < P::kQKBoxes; ++c)
         tma_load_3d(q_s + c * P::kQBoxBytes, &q_map, q_full,
                     c * P::kBoxCols, q0, bh);
+      if constexpr (P::kSplit) {
+        // K of tile j + 1 before V of tile j, the order the consumers
+        // take them in; each ring's first revolution finds it empty
+        for (int it = -1, n_tiles = n_end - n_first; it < n_tiles; ++it) {
+          if (const int nx = it + 1; nx < n_tiles) {
+            const int s = nx % P::kStages;
+            const uint32_t full = bars + 8 * s;
+            mbar_wait(bars + 8 * (P::kStages + s),
+                      ((nx / P::kStages) & 1) ^ 1);
+            mbar_arrive_expect_tx(full, P::kKBytes);
+            for (int c = 0; c < P::kQKBoxes; ++c)
+              tma_load_3d(k_tile<P>(q_s, s) + c * P::kKVBoxBytes, &k_map,
+                          full, c * P::kBoxCols, (n_first + nx) * kBK, kvh);
+          }
+          if (it < 0) continue;
+          const int s = it % P::kStages;
+          const uint32_t full = v_full + 8 * s;
+          mbar_wait(v_empty + 8 * s, ((it / P::kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(full, P::kVBytes);
+          for (int c = 0; c < P::kVBoxes; ++c)
+            tma_load_3d(k_tile<P>(q_s, s) + P::kKBytes + c * P::kKVBoxBytes,
+                        &v_map, full, c * P::kBoxCols, (n_first + it) * kBK,
+                        kvh);
+        }
+        return;
+      }
       for (int n = n_first, it = 0; n < n_end; ++n, ++it) {
         const int s = it % P::kStages;
         const uint32_t full = bars + 8 * s;
@@ -754,46 +818,126 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   float sc[kBK / 2];
   uint32_t p[kBK / 16][4];
 
-  mbar_wait(q_full, 0);
-  mbar_wait(bars, 0);
-  __syncwarp();
-  fence_regs(sc);
-  wgmma_fence();
-  qk_mma<P, D>(sc, q_wg, k_tile<P>(q_s, 0));
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(sc);
-  online_softmax<kBK>(sc, m, l, alpha, rows, n_first * kBK);
-  to_bf16<kBK>(sc, p);
-  for (int it = 1; it < n_tiles; ++it) {
-    const int s = it % P::kStages, prev = (it - 1) % P::kStages;
-    mbar_wait(bars + 8 * s, (it / P::kStages) & 1);
-    __syncwarp();
+  if constexpr (P::kSplit) {
+    // K and V on rings of their own; K's stage of tile j and V's of tile
+    // j - 1 are freed once P.V of tile j - 1 is in. The consumers take
+    // turns to issue their products: consumer 0 opens, each hands the turn
+    // on once its products are issued (a turn for each tile, and one for
+    // the last P.V).
+    const auto take_turn = [&] { named_bar_sync(kTurnBar + cw, 256); };
+    const auto pass_turn = [&] {
+      named_bar_arrive(kTurnBar + (cw + 1) % 2, 256);
+    };
+    // one arrival of this warp on each given empty barrier (0: none)
+    const auto release = [&](uint32_t empty_k, uint32_t empty_v) {
+      __syncwarp();
+      if (lane == 0) {
+        if (empty_k) mbar_arrive(empty_k);
+        if (empty_v) mbar_arrive(empty_v);
+      }
+    };
+    // the full barriers of tile ``it``'s K and V stages
+    const auto wait_k = [&](int it) {
+      mbar_wait(bars + 8 * (it % P::kStages), (it / P::kStages) & 1);
+    };
+    const auto wait_v = [&](int it) {
+      mbar_wait(bars + 8 * (2 * P::kStages + it % P::kStages),
+                (it / P::kStages) & 1);
+    };
+    const auto free_tiles = [&](int k_it, int v_it) {   // -1: none
+      release(k_it < 0 ? 0 : bars + 8 * (P::kStages + k_it % P::kStages),
+              v_it < 0 ? 0 : bars + 8 * (3 * P::kStages + v_it % P::kStages));
+    };
+    const auto issue_s = [&](int it) {
+      take_turn();
+      __syncwarp();
+      fence_regs(sc);
+      fence_regs(acc);
+      wgmma_fence();
+      qk_mma<P, D>(sc, q_wg, k_tile<P>(q_s, it % P::kStages));
+      wgmma_commit();
+    };
+    const auto issue_pv = [&](int it) {
+      pv_mma<P, DV>(acc, p, k_tile<P>(q_s, it % P::kStages) + P::kKBytes);
+      wgmma_commit();
+    };
+    if (cw == 0) named_bar_arrive(kTurnBar, 256);
+    mbar_wait(q_full, 0);
+    wait_k(0);
+    issue_s(0);
+    pass_turn();
+    wgmma_wait<0>();
     fence_regs(sc);
+    free_tiles(0, -1);
+    online_softmax<kBK>(sc, m, l, alpha, rows, n_first * kBK);
+    to_bf16<kBK>(sc, p);
+    for (int it = 1; it < n_tiles; ++it) {
+      wait_k(it);
+      wait_v(it - 1);
+      issue_s(it);
+      issue_pv(it - 1);
+      pass_turn();
+      wgmma_wait<1>();   // S of tile it is in; P.V of tile it - 1 runs on
+      fence_regs(sc);
+      online_softmax<kBK>(sc, m, l, alpha, rows, (n_first + it) * kBK);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      free_tiles(it, it - 1);
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      to_bf16<kBK>(sc, p);
+    }
+    wait_v(n_tiles - 1);
+    take_turn();
+    __syncwarp();
     fence_regs(acc);
     wgmma_fence();
-    qk_mma<P, D>(sc, q_wg, k_tile<P>(q_s, s));
-    wgmma_commit();
-    pv_mma<P, DV>(acc, p, k_tile<P>(q_s, prev) + P::kKBytes);
-    wgmma_commit();
-    wgmma_wait<1>();   // S of tile it is in; P.V of tile it - 1 runs on
-    fence_regs(sc);
-    online_softmax<kBK>(sc, m, l, alpha, rows, (n_first + it) * kBK);
+    issue_pv(n_tiles - 1);
+    if (cw != 1) pass_turn();   // consumer 1's last turn
     wgmma_wait<0>();
     fence_regs(acc);
+  } else {
+    mbar_wait(q_full, 0);
+    mbar_wait(bars, 0);
     __syncwarp();
-    if (lane == 0) mbar_arrive(bars + 8 * (P::kStages + prev));
-#pragma unroll
-    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    fence_regs(sc);
+    wgmma_fence();
+    qk_mma<P, D>(sc, q_wg, k_tile<P>(q_s, 0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    online_softmax<kBK>(sc, m, l, alpha, rows, n_first * kBK);
     to_bf16<kBK>(sc, p);
+    for (int it = 1; it < n_tiles; ++it) {
+      const int s = it % P::kStages, prev = (it - 1) % P::kStages;
+      mbar_wait(bars + 8 * s, (it / P::kStages) & 1);
+      __syncwarp();
+      fence_regs(sc);
+      fence_regs(acc);
+      wgmma_fence();
+      qk_mma<P, D>(sc, q_wg, k_tile<P>(q_s, s));
+      wgmma_commit();
+      pv_mma<P, DV>(acc, p, k_tile<P>(q_s, prev) + P::kKBytes);
+      wgmma_commit();
+      wgmma_wait<1>();   // S of tile it is in; P.V of tile it - 1 runs on
+      fence_regs(sc);
+      online_softmax<kBK>(sc, m, l, alpha, rows, (n_first + it) * kBK);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (P::kStages + prev));
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      to_bf16<kBK>(sc, p);
+    }
+    const int last = (n_tiles - 1) % P::kStages;
+    fence_regs(acc);
+    wgmma_fence();
+    pv_mma<P, DV>(acc, p, k_tile<P>(q_s, last) + P::kKBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
-  const int last = (n_tiles - 1) % P::kStages;
-  fence_regs(acc);
-  wgmma_fence();
-  pv_mma<P, DV>(acc, p, k_tile<P>(q_s, last) + P::kKBytes);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
 
   float den[2];
 #pragma unroll
@@ -938,13 +1082,22 @@ int fa_f32_smem_bytes(int D, int DV) {
   return 0;
 }
 
-// dynamic shared memory a bf16 block takes at head dims (D, DV) (0 if none)
-int fa_bf16_smem_bytes(int D, int DV) {
-#define FA_BF16_SMEM(d, dv) \
-  if (D == d && DV == dv) return tc::Plan<d, dv>::kSmemBytes;
-  FA_PAIRS(FA_BF16_SMEM)
-#undef FA_BF16_SMEM
-  return 0;
+// the bf16 plan at head dims (D, DV) into out[5]: query rows and keys a
+// tile, ring stages, split rings (K and V apart, the consumers taking
+// turns), and the dynamic shared memory a block takes. Returns 0, or -1
+// for a pair it does not take.
+int fa_bf16_plan(int D, int DV, int* out) {
+#define FA_BF16_PLAN(d, dv)                                               \
+  if (D == d && DV == dv) {                                               \
+    using P = tc::Plan<d, dv>;                                            \
+    const int plan[5] = {tc::kBQ, P::kBK, P::kStages, P::kSplit,          \
+                         P::kSmemBytes};                                  \
+    for (int i = 0; i < 5; ++i) out[i] = plan[i];                         \
+    return 0;                                                             \
+  }
+  FA_PAIRS(FA_BF16_PLAN)
+#undef FA_BF16_PLAN
+  return -1;
 }
 
 const char* fa_error_string(int code) {

@@ -67,6 +67,17 @@ __device__ __forceinline__ void tma_prefetch_map(const void* map) {
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// ---------------------------------------------------------- named barriers
+// ``threads`` threads meet at barrier ``id`` (1-15; 0 is __syncthreads's):
+// sync arrives and waits for the phase, arrive only counts towards it
+__device__ __forceinline__ void named_bar_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(uint32_t id,
+                                                 uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------- registers, warpgroups
 template <uint32_t N>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -167,21 +178,22 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// D[64 x 64] (+)= A[64 x 16] . B[16 x 64]; A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32],
+// D[64 x 80] (+)= A[64 x 16] . B[16 x 80]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_m64n80(float (&d)[40],
                                                 uint64_t desc_a,
                                                 uint64_t desc_b,
                                                 int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -189,7 +201,9 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32],
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

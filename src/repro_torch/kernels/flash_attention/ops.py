@@ -40,26 +40,33 @@ def _check_pair(d: int, dv: int) -> None:
 
 
 def tile_plan(d: int, dv: int) -> dict:
-    """The bf16 kernel's tiles at head dims ``(d, dv)``, as ``csrc``
-    fixes them: query rows and keys a block (64 keys at D 256, else 128),
-    the swizzled row of one TMA box, the columns Q and K take in shared
-    memory (whole boxes: 128 at D 96, its last 32 zero), ring stages (as
-    many as fit, at most 4), and the dynamic shared memory a block takes
-    (Q, the ring of K and V tiles, one 8-byte mbarrier per ring slot twice
-    plus Q's, and 1024 bytes to align the base)."""
+    """The bf16 kernel's plan at head dims ``(d, dv)``, as ``csrc`` fixes
+    it (``fa_bf16_plan`` there): query rows a block (two consumer
+    warpgroups of 64 and a producer) and keys a KV tile (80 at D 256, else
+    128); the swizzled row of one TMA box; the columns Q and K take in
+    shared memory (whole boxes: 128 at D 96, its last 32 zero); ring
+    stages, as many as fit (at most 4); ``split`` (at D 256): K and V on
+    rings of their own, as many stages each, the consumers taking turns to
+    issue their products, else one ring of K and V tiles; and the dynamic
+    shared memory a block takes (Q, the ring, one 8-byte "full" and one
+    "empty" mbarrier a stage of each ring plus Q's, and 1024 bytes to align
+    the base)."""
     _check_pair(d, dv)
-    q_rows, kv_rows = 128, 64 if d == 256 else 128
+    split = d == 256
+    rings = 2 if split else 1
+    q_rows, kv_rows = 128, 80 if split else 128
     row_bytes = 64 if d == 32 else 128
     box_cols = row_bytes // 2
     qk_cols = -(-d // box_cols) * box_cols
     q_bytes = q_rows * qk_cols * 2
     stage = kv_rows * (qk_cols + dv) * 2
-    stages = min(4, (SMEM_MAX - 1024 - 8 - q_bytes) // (stage + 16))
-    return {"q_rows": q_rows, "kv_rows": kv_rows, "stages": stages,
-            "box_row_bytes": row_bytes, "qk_cols": qk_cols,
-            "consumer_rows": 64,
-            "smem_bytes": q_bytes + stages * stage + 8 * (2 * stages + 1)
-            + 1024}
+    stages = min(4, (SMEM_MAX - 1024 - 8 - q_bytes) // (stage + 16 * rings))
+    return {"q_rows": q_rows, "kv_rows": kv_rows, "k_stages": stages,
+            "v_stages": stages, "split": split, "consumers": 2,
+            "consumer_rows": 64, "box_row_bytes": row_bytes,
+            "qk_cols": qk_cols,
+            "smem_bytes": q_bytes + stages * stage
+            + 8 * (2 * rings * stages + 1) + 1024}
 
 
 def f32_tile_plan(d: int, dv: int) -> dict:
@@ -97,11 +104,25 @@ def load_library() -> ctypes.CDLL:
         lib.fa_launch.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
-        for fn in (lib.fa_bf16_smem_bytes, lib.fa_f32_smem_bytes):
-            fn.argtypes = [ctypes.c_int, ctypes.c_int]
-            fn.restype = ctypes.c_int
+        lib.fa_f32_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fa_f32_smem_bytes.restype = ctypes.c_int
+        lib.fa_bf16_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+        lib.fa_bf16_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def built_tile_plan(d: int, dv: int) -> dict:
+    """The bf16 plan as a built library reports it (``fa_bf16_plan``), in
+    ``tile_plan``'s keys: what ``tile_plan`` mirrors."""
+    _check_pair(d, dv)
+    out = (ctypes.c_int * 5)()
+    if load_library().fa_bf16_plan(d, dv, out):
+        raise ValueError(f"the library has no bf16 plan for {(d, dv)}")
+    q_rows, kv_rows, stages, split, smem = out
+    return {"q_rows": q_rows, "kv_rows": kv_rows, "k_stages": stages,
+            "v_stages": stages, "split": bool(split), "smem_bytes": smem}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -204,7 +204,7 @@ def test_window_below_one_matches_jax(window):
 # ---------------------------------------------- the bf16 kernel's rounding
 # What csrc/flash_attention.cu's bf16 path computes, step by step, in f32
 # torch: query blocks of ``tile_plan``'s rows; of each, only the KV tiles
-# (``tile_plan``'s keys: 128, or 64 at D 256) holding a key some row may
+# (``tile_plan``'s keys: 128, or 80 at D 256) holding a key some row may
 # see, in order (every tile under a window below 1, which ``kernel_window``
 # passes as itself); scores q.k^T in f32, then scaled by scale * log2(e),
 # masked entries -1e30, keys past S -inf; m, l and acc in f32 with exp2;
@@ -276,10 +276,16 @@ EMULATION_CASES = {
     "first_tile_masked_128": (1, 2, 1, 256, 64, 40, 128, 128, True, None),
     # 9 tiles of 128 keys, a window: the last row block visits all 9
     "nine_tiles_window": (1, 4, 2, 1152, 64, 1000, 128, 128, True, None),
-    # D 256 on one KV head: a ragged last tile of the bf16 kernel's 64
-    # keys, and a band whose first visited tile is wholly masked
+    # D 256 on one KV head: a ragged last tile (224 = 2 x 80 + 64), and a
+    # band whose first visited tile is wholly masked
     "d256_ragged": (1, 4, 1, 224, 256, None, 32, 32, True, None),
     "d256_first_tile_masked": (1, 2, 1, 256, 256, 40, 64, 64, True, None),
+    # the bf16 kernel's 80-key tiles under 128-row blocks: S 208 = 2 x 80 +
+    # 48, the causal diagonal inside tiles 1 and 2; and GQA with a band
+    # whose lower edge cuts tiles
+    "d256_diagonal_mid_tile": (1, 4, 1, 208, 256, None, 64, 64, True,
+                               None),
+    "d256_band_mid_tile": (1, 4, 2, 208, 256, 77, 64, 64, True, None),
     # a window below 1: causal, every row averages all S values; not
     # causal, rows see the keys at least 1 - window ahead, the last none
     "window_zero": (1, 4, 2, 192, 64, 0, 64, 64, True, None),
@@ -293,6 +299,10 @@ EMULATION_DV_CASES = {
     "mla_96_64_window": ((2, 4, 2, 192, 96, 50, 64, 64, True, None), 64),
     "mla_96_64_window_zero": ((1, 2, 1, 64, 96, 0, 32, 32, False, None),
                               64),
+    # a ragged 64-key last tile and a 64-row last block, the causal
+    # diagonal on GQA at the MLA's scale 96^-0.5
+    "mla_96_64_ragged": ((1, 4, 2, 320, 96, None, 64, 64, True,
+                          96 ** -0.5), 64),
 }
 
 
@@ -327,22 +337,37 @@ def test_bf16_kernel_rounding_is_inside_the_tolerance(case):
 def test_tile_plan_fits_a_block(d, dv):
     plan = ops.tile_plan(d, dv)
     assert plan["smem_bytes"] <= ops.SMEM_MAX   # the most a block may use
-    for key in ("q_rows", "kv_rows", "consumer_rows"):
-        assert plan[key] % 64 == 0             # wgmma tiles are 64 rows
-    assert plan["q_rows"] == 2 * plan["consumer_rows"]   # two consumers
-    assert plan["stages"] >= 2                 # a ring: load j+1 during j
+    # two consumer warpgroups of 64 rows (a wgmma's m)
+    assert plan["consumer_rows"] == 64
+    assert plan["q_rows"] == plan["consumers"] * plan["consumer_rows"]
+    assert plan["consumers"] == 2
+    # whole wgmma tiles: S's n (a multiple of 8, at most 256) is the key
+    # tile, P.V's k-steps of 16 keys cover it; 80 keys at D 256, else 128
+    assert plan["kv_rows"] % 16 == 0 and plan["kv_rows"] <= 256
+    assert plan["kv_rows"] == (80 if d == 256 else 128)
+    # K and V rings of at least 2 stages each: K and V of tile j + 1 load
+    # while tile j computes; on rings of their own at (256, 256), where
+    # only 2 fit
+    assert plan["k_stages"] >= 2 and plan["v_stages"] >= 2
+    assert plan["k_stages"] == plan["v_stages"]
+    assert plan["split"] == (d == 256)
     assert plan["box_row_bytes"] in (64, 128)  # a TMA / wgmma swizzle
     box_cols = plan["box_row_bytes"] // 2
-    # Q and K in whole boxes (D 96: two, the last 32 columns zero), V too
+    # Q and K in whole boxes (D 96: two, the last 32 columns zero), V too;
+    # each box of a K or V tile on the swizzle's 1024-byte period
     assert plan["qk_cols"] % box_cols == 0 and \
         0 <= plan["qk_cols"] - d < box_cols and dv % box_cols == 0
+    assert plan["kv_rows"] * plan["box_row_bytes"] % 1024 == 0
     assert d % 16 == 0                         # whole k-steps of wgmma
-    tiles = plan["q_rows"] * plan["qk_cols"] * 2 + plan["stages"] * \
-        plan["kv_rows"] * (plan["qk_cols"] + dv) * 2
-    assert tiles < plan["smem_bytes"] <= tiles + 1024 + 8 * 64
+    stage = plan["kv_rows"] * (plan["qk_cols"] + dv) * 2
+    tiles = plan["q_rows"] * plan["qk_cols"] * 2 + plan["k_stages"] * stage
+    # a full and an empty barrier a stage of each ring, Q's, 1 KB to align
+    rings = 2 if plan["split"] else 1
+    assert plan["smem_bytes"] == tiles + 8 * (2 * rings * plan["k_stages"]
+                                              + 1) + 1024
     # a stage more would not fit (or the ring is at its 4)
-    assert plan["stages"] == 4 or tiles + plan["kv_rows"] * (
-        plan["qk_cols"] + dv) * 2 + 1024 + 8 * 64 > ops.SMEM_MAX
+    assert plan["k_stages"] == 4 or \
+        plan["smem_bytes"] + stage + 16 * rings > ops.SMEM_MAX
     for pair in ((80, 80), (32, 16), (64, 96)):
         with pytest.raises(ValueError, match="head dims"):
             ops.tile_plan(*pair)
