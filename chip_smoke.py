@@ -6,7 +6,8 @@
 It builds the port's three CUDA libraries from the sources in the
 checkout (one nvcc each, all at once), logs each library's registers and
 spills as ptxas reports them (and fails if ptxas serialised a kernel's
-wgmma, or if one of the SSD scan's or the flash kernels spills), and
+wgmma, if one of the SSD scan's or the flash kernels spills, or if a
+flash kernel keeps a stack frame), and
 holds each kernel against its plain torch version on edge cases: the
 fingerprint bit-exactly, flash attention (its f32 kernel, three TF32
 products a product on ``mma.sync``, and its bf16 ``wgmma`` kernel, at
@@ -22,7 +23,7 @@ granite-moe-3b-a800m width, then runs the serving half of the main path
 
 at the full width of yi-6b (dense, its depth cut to ``YI_SERVE_LAYERS``,
 3.8 GB of bf16 weights), mixtral-8x7b (moe, its depth cut to
-``MIXTRAL_LAYERS``, 6.3 GB), minicpm3-4b (mla, all 62 layers, 8.5 GB)
+``MIXTRAL_LAYERS``, 6.3 GB), minicpm3-4b (mla, ``MINICPM_LAYERS`` of 62)
 and hymba-1.5b (hybrid, 2.8 GB, 4096-token prompts), weights drawn on the
 card from a seeded generator. The smart followers
 (yi-6b, mixtral-8x7b, minicpm3-4b) pull from the trainer's store
@@ -179,8 +180,16 @@ F32_TF32_PRODUCTS = 3
 # 2 xors and 1 shift in the mix, 1 xor and 1 add into the row's sums
 FP_OPS_PER_LANE = 9
 # the train phase: yi-6b at full width, depth cut so that 16 bytes a
-# parameter (bf16 param and grad, f32 master, m, v) fit on one card
-TRAIN_LAYERS = 4
+# parameter (bf16 param and grad, f32 master, m, v) fit on one card; at 4
+# layers (17.0 GB a save) the train and mesh_1x1 phases' saves and
+# restores took 230 s of a whole run of 1224 s on a slow host, against the
+# 1200 s limit (PERF.md §5)
+TRAIN_LAYERS = 2
+# remat_outputs keeps 4 layers (it saves nothing): at 2, "nothing"'s peak
+# came out 10 MB above "outputs"' (3,181,496,832 against 3,171,026,944 B),
+# so the phase's ordering holds only where the layers' saving outweighs
+# what differs beside it
+REMAT_LAYERS = 4
 TRAIN_STEPS = 2          # steps before each of the two saves
 # mixtral-8x7b at full width, depth cut: its 32 layers are 93.4 GB of bf16
 # params; 2 layers are 6.33 GB. At 4 (12.13 GB) its path's saves, pulls
@@ -190,6 +199,9 @@ MIXTRAL_LAYERS = 2
 # yi-6b's serving path at full width, depth cut to keep the whole script
 # well inside its time limit
 YI_SERVE_LAYERS = 8
+# minicpm3-4b at full width, depth cut: its 62 layers (8.5 GB) took 121 s
+# of the same 1224 s run
+MINICPM_LAYERS = 31
 CARD_SHELL = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
 
@@ -267,21 +279,21 @@ def phase_build():
                                   for p in pairs),
           f"the flash kernels built are not one a dtype and pair: "
           f"{sorted(flash)}")
-    check(all(k["spill_bytes"] == 0 for k in flash.values()),
-          f"a flash kernel spills: {flash}")
+    check(all(k["spill_bytes"] == 0 and k["stack_bytes"] == 0
+              for k in flash.values()),
+          f"a flash kernel spills or keeps a stack frame (a register array "
+          f"indexed at run time lands there): {flash}")
     plans = {f"{d}, {dv}": fa_ops.built_tile_plan(d, dv)
              for d, dv in fa_ops.HEAD_DIMS}
-    f32_plans = {f"{d}, {dv}": fa_ops.f32_tile_plan(d, dv)["smem_bytes"]
+    f32_plans = {f"{d}, {dv}": fa_ops.built_f32_tile_plan(d, dv)
                  for d, dv in fa_ops.HEAD_DIMS}
-    lib = fa_ops.load_library()
     for d, dv in fa_ops.HEAD_DIMS:
-        mirror = fa_ops.tile_plan(d, dv)
-        check(all(mirror[k] == v for k, v in plans[f"{d}, {dv}"].items()),
-              f"ops.tile_plan disagrees with the kernel's bf16 plan at "
-              f"({d}, {dv}): {mirror} against {plans[f'{d}, {dv}']}")
-    check(all(lib.fa_f32_smem_bytes(d, dv) == f32_plans[f"{d}, {dv}"]
-              for d, dv in fa_ops.HEAD_DIMS),
-          "ops.f32_tile_plan disagrees with the kernel's shared memory")
+        for dtype, mirror, built in (
+                ("bf16", fa_ops.tile_plan(d, dv), plans[f"{d}, {dv}"]),
+                ("f32", fa_ops.f32_tile_plan(d, dv), f32_plans[f"{d}, {dv}"])):
+            check(all(mirror[k] == v for k, v in built.items()),
+                  f"ops disagrees with the kernel's {dtype} plan at "
+                  f"({d}, {dv}): {mirror} against {built}")
     ssd_lib = ssd_ops.load_library()
     ssd_plans = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -301,13 +313,14 @@ def phase_build():
     log("build", seconds=secs, card=torch.cuda.get_device_name(0),
         cuda=torch.version.cuda, torch=torch.__version__,
         built=sorted(paths), ptxas=ptxas, flash_kernels=flash,
-        flash_bf16_plans=plans, flash_f32_smem_bytes=f32_plans,
+        flash_bf16_plans=plans, flash_f32_plans=f32_plans,
         ssd_smem_bytes=ssd_plans)
 
 
 def _flash_kernels(report: dict) -> dict:
     """The flash library's ptxas report by kernel: {"bf16 (D, Dv)" or
-    "f32 (D, Dv)": registers and spill bytes (stores + loads)}."""
+    "f32 (D, Dv)": registers, stack frame bytes, and spill bytes (stores +
+    loads)}."""
     out = {}
     for k in report["kernels"]:
         m = re.search(r"(fa_bf16_kernel|fa_kernel)ILi(\d+)ELi(\d+)E",
@@ -316,6 +329,7 @@ def _flash_kernels(report: dict) -> dict:
             dtype = "bf16" if m.group(1) == "fa_bf16_kernel" else "f32"
             out[f"{dtype} ({m.group(2)}, {m.group(3)})"] = {
                 "registers": k.get("registers"),
+                "stack_bytes": k.get("stack_bytes"),
                 "spill_bytes": k.get("spill_stores", 1)
                 + k.get("spill_loads", 1)}
     return out
@@ -665,6 +679,16 @@ FA_EDGE_CASES = [
     (2, 4, 2, 333, 256, 256, 77, True, None),
     (1, 8, 8, 333, 96, 64, 77, True, 96 ** -0.5),
     (1, 4, 1, 208, 96, 64, None, False, 0.3),
+    # the f32 plans' tile edges: at (256, 256) two warps a strip score a
+    # 32-key tile's halves (S 200: the last tile's second half past S, a
+    # band edge inside halves; S 20: one tile, its second half past S);
+    # 64-key tiles at (96, 64), 128-key at D 32 and 32-key at D 128, each
+    # with a ragged last tile and a band edge inside tiles
+    (1, 8, 1, 200, 256, 256, 45, True, None),
+    (1, 4, 1, 20, 256, 256, None, False, 0.2),
+    (1, 8, 8, 300, 96, 64, 45, True, 96 ** -0.5),
+    (1, 4, 2, 300, 32, 32, 77, True, None),
+    (1, 4, 2, 200, 128, 128, 45, True, None),
 ]
 # B, S, H, P, G, N, chunk, |A| scale
 SSD_EDGE_CASES = [
@@ -700,6 +724,8 @@ FA_UNALIGNED_CASES = [
     (2, 4, 2, 300, 96, 64, 100, True, None),
     (1, 8, 1, 208, 256, 256, None, True, None),
     (1, 8, 8, 333, 96, 64, 77, True, 96 ** -0.5),
+    (1, 8, 1, 200, 256, 256, 45, True, None),
+    (1, 4, 2, 300, 32, 32, 77, True, None),
 ]
 FA_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 SSD_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -1310,7 +1336,8 @@ MLA_PATH_BATCH, MLA_PATH_LEN = 1, 4096
 
 
 def phase_mla_kernel_path(cfg, params, dev) -> dict:
-    """minicpm3-4b's served weights (all 62 layers): on every layer of a
+    """minicpm3-4b's served weights (``MINICPM_LAYERS`` of its 62): on
+    every layer of a
     prefill of ``MLA_PATH_BATCH`` x ``MLA_PATH_LEN`` tokens, q (nope +
     rope, 96), k (the ``wkv_b`` expansion of the latent, with the shared
     rope key) and v (64) as ``apply_mla_block`` computes them, through the
@@ -2219,7 +2246,7 @@ def phase_train(dev, layers: int, steps: int) -> dict:
     ``training_path`` at the quickstart's traffic (batch 4 x 2048 tokens);
     then the fingerprint kernel held bit for bit against its plain version
     on the training tree (params and f32 optimizer state) and timed; then
-    ``phase_remat_outputs`` on the same model."""
+    ``phase_remat_outputs`` on the same model at ``REMAT_LAYERS``."""
     from repro_torch.configs import get_config
     cfg = get_config("yi-6b").replace(n_layers=layers)
     batch, seq = 4, 2048
@@ -2239,7 +2266,8 @@ def phase_train(dev, layers: int, steps: int) -> dict:
     out["kernel"] = phase_fingerprint_full(out.pop("union"), 1 << 20,
                                            "fingerprint_train")
     torch.cuda.empty_cache()
-    out["remat_outputs"] = phase_remat_outputs(cfg, dev)
+    out["remat_outputs"] = phase_remat_outputs(
+        cfg.replace(n_layers=REMAT_LAYERS), dev)
     return out
 
 
@@ -3172,7 +3200,7 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
     torch.cuda.empty_cache()
 
     # slice 8: the moe family (depth cut) with the tenants forked from its
-    # base, and the mla family at full depth
+    # base, and the mla family (depth cut)
     mx = run_model("mixtral-8x7b", dev, edit="blocks/router", edit_layer=1,
                    batch=4, prompt_len=128, new_tokens=32, follower="smart",
                    extras=("tenants",), layers=MIXTRAL_LAYERS)
@@ -3182,7 +3210,8 @@ def _main(dev, dry: DryRun, t_start: float) -> int:
     del mx
     torch.cuda.empty_cache()
     mc = run_model("minicpm3-4b", dev, edit="blocks/wkv_b", edit_layer=3,
-                   batch=4, prompt_len=128, new_tokens=32, follower="smart")
+                   batch=4, prompt_len=128, new_tokens=32, follower="smart",
+                   layers=MINICPM_LAYERS)
     fp_mla_launches = mc["launches"]
     # slice 17: the flash kernel at the MLA's (96, 64) on every layer of
     # the served minicpm3-4b's prefill, then at gemma-2b's (256, 256)

@@ -78,12 +78,14 @@ def _target(name: str, src: str) -> str:
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_STACK = re.compile(r"(\d+) bytes stack frame")
 _REGS = re.compile(r"Used (\d+) registers")
 
 
 def ptxas_report(log: str) -> dict:
     """The ``-Xptxas -v`` log of one library -> {"kernels": [{"name",
-    "registers", "spill_stores", "spill_loads"}, ...], "wgmma_serialized":
+    "registers", "stack_bytes", "spill_stores", "spill_loads"}, ...],
+    "wgmma_serialized":
     the compiler's warnings that it serialised wgmma instructions}."""
     kernels, current = [], None
     for line in log.splitlines():
@@ -94,6 +96,8 @@ def ptxas_report(log: str) -> dict:
         elif current is not None and _SPILL.search(line):
             stores, loads = _SPILL.search(line).groups()
             current.update(spill_stores=int(stores), spill_loads=int(loads))
+            if _STACK.search(line):
+                current["stack_bytes"] = int(_STACK.search(line).group(1))
         elif current is not None and _REGS.search(line):
             current["registers"] = int(_REGS.search(line).group(1))
     serialized = [ln.strip() for ln in log.splitlines()

@@ -19,6 +19,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+__all__ = ["byte_view", "fingerprint_rows_plain", "fingerprint_chunks_ref"]
+
 C1, C2, C3 = 0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35
 _M32 = 0xFFFFFFFF
 # lanes per processing step: bounds the int64 temporaries to ~128 MiB each
@@ -88,3 +90,14 @@ def fingerprint_rows_plain(leaves: Sequence[torch.Tensor],
     if not leaves:
         return torch.zeros((0, 2), dtype=torch.int32)
     return torch.cat([_leaf_rows(t, n, w) for t, (n, w) in zip(leaves, geom)])
+
+
+def __getattr__(name: str):
+    """``fingerprint_chunks_ref``, the host oracle the reference's module
+    re-exports, bound on first use: ``core/fingerprint.py`` imports this
+    module (through ``core/chunker.py`` and ``ops.py``), so it cannot be
+    imported here at the top."""
+    if name == "fingerprint_chunks_ref":
+        from ...core.fingerprint import fingerprint_chunks_ref
+        return fingerprint_chunks_ref
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -114,56 +114,63 @@
 // is dropped. So the f32 bound is operations: 2 (D + Dv) flops per
 // unmasked pair, three TF32 products each, over the 495 TFLOP/s of the
 // TF32 tensor cores (yi-6b's shape: 3 x 137.5 GFLOP, 0.833 ms; 2.052 ms at
-// the CUDA cores' 67 TFLOP/s, the ceiling of the FMA design this one
-// replaced). The accuracy does not depend on torch's allow_tf32 switch:
-// the split is in the kernel. What the design does:
+// the CUDA cores' 67 TFLOP/s). mma.sync.m16n8k8 itself reaches about 320
+// TFLOP/s on an H100 (a bare loop of independent products). The accuracy
+// does not depend on torch's allow_tf32 switch: the split is in the
+// kernel. What the design does:
 //   * mma.sync.m16n8k8 (tf32 x tf32 -> f32), not wgmma: for 32-bit types
 //     wgmma takes both operands K-major only, so P.V would need V
-//     transposed in shared memory; mma.sync reads B fragments with plain
-//     32-bit shared loads.
-//   * A block is 128 query rows in 8 warps of 16 rows (256 threads), over
-//     KV tiles of 64 keys: 8 warps a SM at D 128, against the FMA
-//     design's 4. At D 256 a block is 64 rows in 4 warps over 32-key
-//     tiles, so that Q and a ring of 2 fit (205,824 B) and a warp's O
-//     accumulator (16 x 256: 128 registers a thread) leaves room for S (16
-//     x 32) and the products' fragments. A warp's S and O accumulators
-//     stay in registers.
+//     transposed in shared memory.
 //   * The contraction order inside each k-step is permuted, the same way
 //     for both operands (a sum does not care): for S = Q.K^T, k-step 2j
 //     takes D columns 16 j + 4 t + {0, 1} and k-step 2j + 1 columns
-//     16 j + 4 t + {2, 3} (t = lane % 4), so one 16-byte load gives a lane
-//     its Q or K fragments of two k-steps; for O += P.V, k-step j takes key
-//     8 j + 2 t as fragment column t and key 8 j + 2 t + 1 as column t + 4,
-//     so the S accumulator of keys 8 j .. 8 j + 7 (columns 2 t, 2 t + 1) is,
-//     register for register, P's A fragment: P never leaves registers and
-//     needs no shuffle.
-//   * Q (scaled after the product, in f32) lives in shared memory and is
-//     split per use; K and V come by cp.async (16 bytes, .cg; 4-byte copies
-//     when a pointer is off a 16-byte boundary) into a ring of 2 stages:
-//     tile j + 1 is in flight while tile j computes. Row strides: D + 16
-//     floats for Q and K (the 16-byte loads of 8 lanes, rows g and g + 1,
-//     fall on 32 distinct banks), Dv + 4 for V (rows 2 t and 2 t + 1 at
-//     column g fall on bank 8 t + g).
-//   * The 3 products of each fragment go term by term over 4 (S) or 8
-//     (P.V; 2 at Dv 256, where more spilled) independent accumulators, so
-//     no mma waits on the one before.
+//     16 j + 4 t + {2, 3} (t = lane % 4), so 16 contiguous bytes hold a
+//     lane's Q or K fragments of two k-steps; for O += P.V, k-step j takes
+//     key 8 j + 2 t as fragment column t and key 8 j + 2 t + 1 as column
+//     t + 4, so the S accumulator of keys 8 j .. 8 j + 7 is, register for
+//     register, P's A fragment: P never needs a shuffle.
+//   * The kernel issues several instructions for each mma, most of them
+//     the splits (an add and a mask each for tf32, not cvt.rna, which
+//     ptxas expands into four): it is bound by issue and by shared memory,
+//     not by the tensor cores. Split per use, each warp would split all of
+//     a tile's K and V, Q once a tile and P once an output batch; so no
+//     value is split twice where the shared memory allows it ("split
+//     once", every pair but D 256):
+//     - Q is split once, before the first tile, into hi and lo planes.
+//     - Each KV tile lands raw by cp.async (16 bytes, .cg; 4-byte copies
+//       when a pointer is off a 16-byte boundary), and the whole block
+//       splits it once into hi and lo planes of K and V.
+//     - A plane is in the order of the mma fragments: a lane's words for
+//       two k-steps (Q, K) or two output tiles (V) are 16 contiguous
+//       bytes, so every fragment load is one conflict-free 16-byte load.
+//     - P is split once a tile, in registers.
+//     A plane costs twice a raw tile's bytes a fragment, so the keys a
+//     tile are as many as the planes leave room for (64 at D 64 and (96,
+//     64), 128 at D 32, 32 at D 128), and the split and the products take
+//     turns (two barriers a tile), the next tile's copies running beside
+//     the products. 128 rows in 8 warps of 16.
+//   * At D 256 (gemma-2b) Q's planes alone would take 128 KB, and a warp
+//     holding a strip's whole O (16 x 256) 128 registers a thread, which
+//     leaves 4 warps an SM. The pair plan: 64 rows in 8 warps, two a
+//     16-row strip. Each scores half of a 32-key tile's keys and holds
+//     half of O's columns (64 registers); the two trade their row maxima
+//     and their halves of P through shared memory under the strip's named
+//     barrier, and each splits the tile's whole P once. Q stays raw, K and
+//     V come raw into a ring of 2 (rows padded to D + 16 and Dv + 4 floats
+//     for conflict-free loads), and each warp splits what it reads.
 //   * The tensor cores' adder truncates where the f32 ALU rounds, so no
 //     long sum runs through it: S is summed 16 columns of D at a time from
-//     zero and each part added in f32; a tile's P.V is summed from zero
-//     and folded into O as O = alpha O + part (one FFMA a register).
-//     (With the sums run through the tensor cores, chip_smoke.py's edge
-//     cases on an H100 erred up to 1.96e-5; so, 4.2e-6.)
+//     zero and each part added in f32, in column order; a tile's P.V is
+//     summed from zero and folded into O as O = alpha O + part (one FFMA a
+//     register). (With the sums run through the tensor cores,
+//     chip_smoke.py's edge cases on an H100 erred up to 1.96e-5; so,
+//     4.2e-6.) kJU blocks of 16 columns of S (2, or 4 at D 128) have
+//     their products in flight at once, 4 n8 tiles of keys each (2 in the
+//     pair plan), and P.V's 8 output tiles, so no mma waits on the one
+//     before; the parts are still added in column order.
 //   * A warp skips the tiles that are wholly masked for its 16 rows.
-//   * The kernel issues several instructions for each mma, most of them
-//     the splits (each warp splits all of a tile's K and V): it is bound
-//     by issue, not by the tensor cores. So the splits are two integer
-//     operations each, not cvt.rna (which ptxas expands into four), and a
-//     thread's copies take one base address and constant offsets (per-copy
-//     addresses hoisted out of the tile loop held enough registers to
-//     spill) where its threads cover whole rows.
-//   Shared memory: 215,040 B at D 128, 116,736 at D 64, 67,584 at D 32,
-//   205,824 at D 256, 149,504 at (96, 64); one block a SM. Registers at
-//   D 128: 255 a thread, no spills.
+//   Shared memory (F32Plan): 141,312 B at D 32, 168,960 at D 64, 231,936
+//   at D 128, 226,304 at (96, 64), 216,064 at D 256; one block a SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -188,27 +195,52 @@ constexpr int kErrEncode = 20002;      // cuTensorMapEncodeTiled refused
 constexpr int kErrAlign = 20003;       // a pointer off a 16-byte boundary
 
 // ------------------------------------------------------------ the f32 path
-constexpr int kStages = 2;      // the K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the f32 tile plan for head dims (D, DV) (ops.py::f32_tile_plan mirrors
-// it): query rows a block (warps of 16), keys a KV tile, P.V's output
-// tiles a batch
+// The f32 plan for head dims (D, DV) (ops.py::f32_tile_plan mirrors it).
+// Split once (kOnce), every pair but D 256: 128 query rows in 8 warps of
+// 16; each KV tile's K and V split into tf32 hi and lo once, by the whole
+// block, into fragment-ordered planes, and Q once before the first tile.
+// The pair plan, D 256: 64 rows in 8 warps, two a 16-row strip (kPair),
+// each scoring half of a tile's keys and holding half of O's columns; Q
+// stays raw, K and V come raw into a ring of 2, and each warp splits what
+// it reads.
 template <int D, int DV>
 struct F32Plan {
-  static constexpr int kBQ = D == 256 ? 64 : 128;
-  static constexpr int kBK = D == 256 ? 32 : 64;
-  static constexpr int kThreads = 2 * kBQ;        // a warp per 16 rows
-  // O's n8 tiles a P.V batch: 2 at Dv 256, where O's accumulator holds
-  // 128 registers a thread (4 spilled)
-  static constexpr int kNB = DV == 256 ? 2 : (DV / 8 < 8 ? DV / 8 : 8);
-  static constexpr int kQK = D + 16;   // row stride (floats) of Q and K
-  static constexpr int kV = DV + 4;    // row stride of V
+  static constexpr bool kOnce = D != 256;
+  static constexpr int kPair = kOnce ? 1 : 2;   // warps a 16-row strip
+  static constexpr int kBQ = kOnce ? 128 : 64;  // query rows a block
+  // keys a KV tile, as many as the planes leave room for (whole groups of
+  // 4 n8 tiles)
+  static constexpr int kBK = D == 32 ? 128 : (D == 64 || D == 96) ? 64 : 32;
+  // 16-column blocks of S whose products are in flight at once
+  static constexpr int kJU = D == 128 ? 4 : 2;
+  static constexpr int kRaw = kOnce ? 1 : 2;     // raw K/V stages
+  static constexpr int kSplit = kOnce ? 1 : 0;   // split K/V stages
+  static constexpr int kThreads = 2 * kBQ * kPair;   // 8 warps
+  static constexpr int kDvW = DV / kPair;            // O's columns a warp
+  static constexpr int kNB = kDvW / 8 < 8 ? kDvW / 8 : 8;   // P.V's n8 tiles
+                                                            // a batch
+  static constexpr int kQK = D + 16;   // row stride (floats) of raw Q and K
+  static constexpr int kV = DV + 4;    // row stride of raw V
   static constexpr int kQFloats = kBQ * kQK;
   static constexpr int kKFloats = kBK * kQK;
-  static constexpr int kStageFloats = kKFloats + kBK * kV;
+  static constexpr int kStageFloats = kKFloats + kBK * kV;   // a raw stage
+  // a split stage: K's hi and lo planes, then V's (32-bit words)
+  static constexpr int kSplitWords = 2 * kBK * (D + DV);
+  // what a pair warp publishes to its partner a tile: its half of P (4
+  // words a lane an n8 tile), then its row maxima (2 a lane)
+  static constexpr int kXchWords = kBK / 16 * 128 + 64;
   static constexpr int kSmemBytes =
-      (kQFloats + kStages * kStageFloats) * static_cast<int>(sizeof(float));
+      4 * (kOnce ? 2 * kBQ * D + kSplit * kSplitWords + kRaw * kStageFloats
+                 : kQFloats + kRaw * kStageFloats +
+                       kThreads / 32 * kXchWords);
+  static_assert(kSmemBytes <= kSmemMax, "a block's tiles fit");
+  static_assert(kBK % 32 == 0 && (D / 16) % kJU == 0 && kNB % 2 == 0,
+                "whole key groups, column blocks and output tile pairs");
+  // split once: Q's raw tile is staged over the split and raw stages
+  static_assert(!kOnce || kQFloats <= kSplitWords + kStageFloats,
+                "Q's raw tile fits where it is staged");
 };
 
 // rows [r0, r0 + ROWS) of a contiguous (S, W) f32 matrix into shared
@@ -271,152 +303,414 @@ __device__ __forceinline__ void load_rows(float* dst, int stride,
   }
 }
 
-// S (16 x BK) = Q (16 x D) . K^T (D x BK). q: Q's row g (row g + 8 is
-// 8 rows on), k: K's key g of the tile, both at column 4 t. Each 16
-// columns of D are summed from zero on the tensor cores, whose adder
-// truncates, and added to S by the f32 ALU, which rounds to nearest; the
-// keys go in groups of 32 (4 accumulators each) to keep the registers in
-// hand, Q's fragments split once for all of them.
-template <class P, int D>
-__device__ __forceinline__ void qk_f32(float (&sc)[P::kBK / 8][4],
-                                       const float* q, const float* k) {
+// A block's query head bh, its KV head, its first query row q0, and the
+// KV tiles holding a key some row of [q0, q0 + BQ) may see: n_tiles from
+// tile n_first. Under a window below 1 (all) a row may see none, and then
+// averages every key. grid: (B * Hq, ceil(S / BQ)), query tiles in
+// reverse (heaviest first).
+struct BlockTiles {
+  int bh, kvh, q0, n_first, n_tiles;
+  bool all;
+};
+
+template <int BQ, int BK>
+__device__ __forceinline__ BlockTiles block_tiles(int Hq, int KVH, int S,
+                                                  int causal, int window) {
+  BlockTiles b;
+  b.bh = blockIdx.x;
+  b.kvh = b.bh / Hq * KVH + (b.bh % Hq) / (Hq / KVH);
+  b.q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  b.all = window < 1;
+  int k_lo = 0, k_hi = S;
+  if (!b.all) {
+    if (causal) k_hi = min(S, b.q0 + BQ);
+    k_lo = max(0, b.q0 - window + 1);
+  }
+  b.n_first = k_lo / BK;
+  b.n_tiles = (k_hi + BK - 1) / BK - b.n_first;
+  return b;
+}
+
+// whether a warp's rows [w_lo, w_lo + 15] see a key of the tile at k0
+// (skipped otherwise), and whether the tile may hold a masked key for them
+__device__ __forceinline__ bool tile_live(int w_lo, int k0, int bk, int S,
+                                          bool all, int causal,
+                                          int window) {
+  return w_lo < S && (all || (!(causal && k0 > w_lo + 15) &&
+                              w_lo - (k0 + bk - 1) < window));
+}
+__device__ __forceinline__ bool tile_edge(int w_lo, int k0, int bk, int S,
+                                          int causal, int window) {
+  return k0 + bk > S || (causal && k0 + bk - 1 > w_lo) ||
+         w_lo + 15 - k0 >= window;
+}
+
+// Scale and mask NT n8 tiles of a warp's scores, in place: sc[n][e] is row
+// row0 + 8 (e >> 1) at key kc + 8 n + 2 t + (e & 1); entries outside the
+// mask -1e30, keys past S -inf. mx: each row's maximum over the quad.
+template <int NT>
+__device__ __forceinline__ void scale_mask(float (&sc)[NT][4],
+                                           float (&mx)[2], int row0, int kc,
+                                           int t, int S, int causal,
+                                           int window, float scale_log2,
+                                           bool edge) {
+  mx[0] = mx[1] = kNegInf;
 #pragma unroll
-  for (int n = 0; n < P::kBK / 8; ++n)
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float s = sc[n][e] * scale_log2;
+      if (edge) {
+        const int qi = row0 + 8 * (e >> 1);
+        const int kj = kc + 8 * n + 2 * t + (e & 1);
+        const bool ok = (!causal || qi >= kj) && qi - kj < window;
+        s = kj >= S ? -INFINITY : (ok ? s : kNegInf);
+      }
+      sc[n][e] = s;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+}
+
+// the online softmax's step for rows row0 and row0 + 8 given the tile's
+// row maxima: m moves on, alpha = exp2(m_old - m_new) rescales l (this
+// thread's share of the row sums) here and O in the P.V fold
+__device__ __forceinline__ void rescale(float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2],
+                                        const float (&mx)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = hopper::exp2_ftz(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+}
+
+// p = exp2(s - m) in place, added to this thread's share of l
+template <int NT>
+__device__ __forceinline__ void exp_rows(float (&sc)[NT][4], float (&l)[2],
+                                         const float (&m)[2]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[n][e] = hopper::exp2_ftz(sc[n][e] - m[e >> 1]);
+      l[e >> 1] += sc[n][e];
+    }
+}
+
+// one n8 tile of P (the S accumulator's layout) split into the A fragment
+// of a P.V k-step: keys 8 n + 2 t as column t, 8 n + 2 t + 1 as column
+// t + 4, so the accumulator is, register for register, the fragment
+__device__ __forceinline__ void split_p(const float (&p)[4], uint32_t (&h)[4],
+                                        uint32_t (&l)[4]) {
+  hopper::split_tf32(p[0], h[0], l[0]);
+  hopper::split_tf32(p[2], h[1], l[1]);
+  hopper::split_tf32(p[1], h[2], l[2]);
+  hopper::split_tf32(p[3], h[3], l[3]);
+}
+
+// O = alpha O + part, NB n8 tiles from n0, by the f32 ALU: the tensor
+// cores' truncating adder never carries O across tiles
+template <int NT, int NB>
+__device__ __forceinline__ void fold(float (&acc)[NT][4], int n0,
+                                     const float (&part)[NB][4],
+                                     const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[n0 + n][e] = fmaf(acc[n0 + n][e], alpha[e >> 1], part[n][e]);
+}
+
+// O's rows row0 and row0 + 8 (those below S), columns 8 n + 2 t of orow,
+// divided by the row sums l (the quad's, already added)
+template <int NT>
+__device__ __forceinline__ void store_o(float* orow, int row_stride,
+                                        const float (&acc)[NT][4],
+                                        const float (&l)[2], int row0,
+                                        int S) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(l[r], 1e-30f);
+    if (row0 + 8 * r >= S) continue;
+    float* out = orow + 8 * r * row_stride;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+  }
+}
+
+__device__ __forceinline__ void quad_sum(float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+}
+
+// S (16 x NT 8) = Q (16 x D) . K^T on the tensor cores, each product as
+// three TF32 products. qf(j, ah, al) gives Q's hi and lo A fragments of
+// k-steps 2 j and 2 j + 1 (columns 16 j ..), kf(n, j, bh, bl) key tile n's
+// B fragments of the same two k-steps ([s][0..1]). Each 16 columns of D
+// are summed from zero on the tensor cores, whose adder truncates, and
+// added to S by the f32 ALU, which rounds to nearest, in column order; JU
+// blocks of 16 columns and up to 4 key tiles each have their products in
+// flight at once.
+template <int NT, int D, int JU, class QF, class KF>
+__device__ __forceinline__ void qk_tf32(float (&sc)[NT][4], QF qf, KF kf) {
+  constexpr int G = NT < 4 ? NT : 4;
+  static_assert(NT % G == 0 && (D / 16) % JU == 0, "whole groups");
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll 1
-  for (int j = 0; j < D / 16; ++j) {
-    const float4 qa = *reinterpret_cast<const float4*>(q + 16 * j);
-    const float4 qb = *reinterpret_cast<const float4*>(q + 8 * P::kQK + 16 * j);
-    // k-step s: a0 (row g), a1 (row g + 8) at column t; a2, a3 at t + 4
-    const float a[2][4] = {{qa.x, qb.x, qa.y, qb.y}, {qa.z, qb.z, qa.w, qb.w}};
-    uint32_t ah[2][4], al[2][4];
+  for (int j0 = 0; j0 < D / 16; j0 += JU) {
+    uint32_t ah[JU][2][4], al[JU][2][4];
 #pragma unroll
-    for (int s = 0; s < 2; ++s)
+    for (int u = 0; u < JU; ++u) qf(j0 + u, ah[u], al[u]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) hopper::split_tf32(a[s][i], ah[s][i], al[s][i]);
+    for (int n0 = 0; n0 < NT; n0 += G) {
+      float part[JU][G][4];
 #pragma unroll
-    for (int h = 0; h < P::kBK / 32; ++h) {
-      float4 kf[4];
+      for (int u = 0; u < JU; ++u)
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
-        kf[n] = *reinterpret_cast<const float4*>(
-            k + 8 * (4 * h + n) * P::kQK + 16 * j);
-      float part[4][4];
+        for (int n = 0; n < G; ++n)
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+          for (int e = 0; e < 4; ++e) part[u][n][e] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+      for (int u = 0; u < JU; ++u) {
+        uint32_t fh[G][2][2], fl[G][2][2];
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        uint32_t bh[4][2], bl[4][2];
+        for (int n = 0; n < G; ++n) kf(n0 + n, j0 + u, fh[n], fl[n]);
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          hopper::split_tf32(s ? kf[n].z : kf[n].x, bh[n][0], bl[n][0]);
-          hopper::split_tf32(s ? kf[n].w : kf[n].y, bh[n][1], bl[n][1]);
+        for (int s = 0; s < 2; ++s) {
+          uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+          for (int n = 0; n < G; ++n)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              bh[n][r] = fh[n][s][r];
+              bl[n][r] = fl[n][s][r];
+            }
+          hopper::mma3_tf32<G>(part[u], ah[u][s], al[u][s], bh, bl);
         }
-        hopper::mma3_tf32<4>(part, ah[s], al[s], bh, bl);
       }
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int u = 0; u < JU; ++u)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[4 * h + n][e] += part[n][e];
+        for (int n = 0; n < G; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n0 + n][e] += part[u][n][e];
     }
   }
 }
 
-// O (16 x DV) = alpha O + P (16 x BK) . V (BK x DV). p: the softmax of the
-// S accumulator, in place; v: V's key 2 t of the tile at column g; alpha:
-// the rescale of rows g and g + 8. The tile's product is summed from zero
-// on the tensor cores, NB output tiles at a time, and added to O by the
-// f32 ALU, so the truncating adder never carries O across tiles.
-template <class P, int DV>
-__device__ __forceinline__ void pv_f32(float (&acc)[DV / 8][4],
-                                       const float (&p)[P::kBK / 8][4],
-                                       const float* v,
-                                       const float (&alpha)[2]) {
-  constexpr int NB = P::kNB;
+// O (16 x NO 8) = alpha O + P (16 x NT 8) . V. ph, pl: the tile's P split
+// once (split_p); vf(j, m, bh, bl): V's B fragments of k-step j (keys
+// 8 j ..) for output tiles 2 m and 2 m + 1 ([2][2]). The tile's product is
+// summed from zero, NB output tiles at a time, and folded into O.
+template <int NO, int NT, int NB, class VF>
+__device__ __forceinline__ void pv_tf32(float (&acc)[NO][4],
+                                        const uint32_t (&ph)[NT][4],
+                                        const uint32_t (&pl)[NT][4], VF vf,
+                                        const float (&alpha)[2]) {
+  static_assert(NO % NB == 0 && NB % 2 == 0, "whole batches of tile pairs");
 #pragma unroll
-  for (int n0 = 0; n0 < DV / 8; n0 += NB) {
+  for (int n0 = 0; n0 < NO; n0 += NB) {
     float part[NB][4];
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < P::kBK / 8; ++j) {
-      // keys 8 j + 2 t (column t) and 8 j + 2 t + 1 (column t + 4)
-      const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) hopper::split_tf32(a[i], ah[i], al[i]);
-      const float* vj = v + 8 * j * P::kV + 8 * n0;
-      float b[NB][2];
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        b[n][0] = vj[8 * n];
-        b[n][1] = vj[P::kV + 8 * n];
-      }
+    for (int j = 0; j < NT; ++j) {
       uint32_t bh[NB][2], bl[NB][2];
 #pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        hopper::split_tf32(b[n][0], bh[n][0], bl[n][0]);
-        hopper::split_tf32(b[n][1], bh[n][1], bl[n][1]);
+      for (int m = 0; m < NB / 2; ++m) {
+        uint32_t h[2][2], l[2][2];
+        vf(j, n0 / 2 + m, h, l);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            bh[2 * m + i][r] = h[i][r];
+            bl[2 * m + i][r] = l[i][r];
+          }
       }
-      hopper::mma3_tf32<NB>(part, ah, al, bh, bl);
+      hopper::mma3_tf32<NB>(part, ph[j], pl[j], bh, bl);
     }
-#pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[n0 + n][e] = fmaf(acc[n0 + n][e], alpha[e >> 1], part[n][e]);
+    fold(acc, n0, part, alpha);
   }
 }
 
-// grid: (B * Hq, ceil(S / kBQ)), query tiles in reverse (heaviest first).
-// Keys with query - key >= window are masked (S or more: no window); vec:
-// q, k and v are 16-byte aligned.
+// ---- split once (P::kOnce). A plane holds a tile's tf32 hi or lo parts
+// in the order of the mma fragments: a lane's words for one pair of
+// k-steps (Q, K) or one pair of output tiles (V) are 16 contiguous bytes,
+// a warp's 512, so every fragment load is one conflict-free 16-byte load
+// and nothing is split twice.
+
+// Q's tile, staged raw at ``raw`` (row stride kQK), into its planes: for
+// strip w, columns 16 j .. 16 j + 15 and k-step s, lane (g, t)'s A
+// fragment (rows g and g + 8 at columns 16 j + 4 t + 2 s and + 1) at word
+// 128 ((w D / 16 + j) 2 + s) + 4 lane
+template <class P, int D>
+__device__ __forceinline__ void split_q(uint32_t* hi, uint32_t* lo,
+                                        const float* raw) {
+  constexpr int kUnits = P::kBQ * D / 8;   // (w, j, lane)
+  static_assert(kUnits % P::kThreads == 0, "whole rounds of units");
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < kUnits / P::kThreads; ++i) {
+    const int wj = (threadIdx.x + i * P::kThreads) / 32;
+    const int w = wj / (D / 16), j = wj % (D / 16);
+    const float* r = raw + (16 * w + g) * P::kQK + 16 * j + 4 * t;
+    const float4 qa = *reinterpret_cast<const float4*>(r);
+    const float4 qb = *reinterpret_cast<const float4*>(r + 8 * P::kQK);
+    const float a[2][4] = {{qa.x, qb.x, qa.y, qb.y}, {qa.z, qb.z, qa.w, qb.w}};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint4 h, l;
+      hopper::split_tf32(a[s][0], h.x, l.x);
+      hopper::split_tf32(a[s][1], h.y, l.y);
+      hopper::split_tf32(a[s][2], h.z, l.z);
+      hopper::split_tf32(a[s][3], h.w, l.w);
+      const int at = 128 * (2 * wj + s) + 4 * lane;
+      *reinterpret_cast<uint4*>(hi + at) = h;
+      *reinterpret_cast<uint4*>(lo + at) = l;
+    }
+  }
+}
+
+// A raw K/V stage (rows at strides kQK and kV) into the split stage: K's
+// hi and lo planes (key tile n, columns 16 j ..: lane (g, t)'s K[8 n + g]
+// [16 j + 4 t .. + 3], two k-steps' B fragments, at word 4 u, u = 32 (n D
+// / 16 + j) + lane), then V's (keys 8 j .., output tiles 2 m and 2 m + 1:
+// V[8 j + 2 t][16 m + g], V[8 j + 2 t + 1][16 m + g] and the same at
+// column 16 m + 8 + g, at 4 u, u = 32 (j DV / 16 + m) + lane). Each thread
+// reads whole units and writes them split: one split a value a block.
+template <class P, int D, int DV>
+__device__ __forceinline__ void split_kv(uint32_t* dst, const float* raw) {
+  constexpr int BK = P::kBK;
+  constexpr int kKUnits = BK * D / 4, kVUnits = BK * DV / 4;
+  static_assert(kKUnits % P::kThreads == 0 && kVUnits % P::kThreads == 0,
+                "whole rounds of units");
+  uint32_t* khi = dst;
+  uint32_t* klo = khi + BK * D;
+  uint32_t* vhi = klo + BK * D;
+  uint32_t* vlo = vhi + BK * DV;
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < kKUnits / P::kThreads; ++i) {
+    const int u = threadIdx.x + i * P::kThreads;
+    const int n = u / 32 / (D / 16), j = u / 32 % (D / 16);
+    const float4 x = *reinterpret_cast<const float4*>(
+        raw + (8 * n + g) * P::kQK + 16 * j + 4 * t);
+    uint4 h, l;
+    hopper::split_tf32(x.x, h.x, l.x);
+    hopper::split_tf32(x.y, h.y, l.y);
+    hopper::split_tf32(x.z, h.z, l.z);
+    hopper::split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(khi + 4 * u) = h;
+    *reinterpret_cast<uint4*>(klo + 4 * u) = l;
+  }
+  const float* vraw = raw + P::kKFloats;
+#pragma unroll
+  for (int i = 0; i < kVUnits / P::kThreads; ++i) {
+    const int u = threadIdx.x + i * P::kThreads;
+    const int j = u / 32 / (DV / 16), m = u / 32 % (DV / 16);
+    const float* c = vraw + (8 * j + 2 * t) * P::kV + 16 * m + g;
+    uint4 h, l;
+    hopper::split_tf32(c[0], h.x, l.x);
+    hopper::split_tf32(c[P::kV], h.y, l.y);
+    hopper::split_tf32(c[8], h.z, l.z);
+    hopper::split_tf32(c[P::kV + 8], h.w, l.w);
+    *reinterpret_cast<uint4*>(vhi + 4 * u) = h;
+    *reinterpret_cast<uint4*>(vlo + 4 * u) = l;
+  }
+}
+
+// The split-once block: Q staged raw over the stages and split into its
+// planes; then for each KV tile, its raw stage split by every thread into
+// the split stage, which every warp reads. The split and the products take
+// turns (two barriers a tile); the next tile's copies run beside the
+// products.
 template <int D, int DV>
-__global__ void __launch_bounds__(F32Plan<D, DV>::kThreads, 1)
-fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int Hq,
-          int KVH, int S, float scale_log2, int causal, int window,
-          int vec) {
+__device__ __forceinline__ void fa_once(const float* __restrict__ q,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        float* __restrict__ o, int Hq,
+                                        int KVH, int S, float scale_log2,
+                                        int causal, int window, int vec) {
   using P = F32Plan<D, DV>;
   constexpr int kBQ = P::kBQ, kBK = P::kBK, kThreads = P::kThreads;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][kQK]
-  float* ring = qs + P::kQFloats;   // kStages x {K [kBK][kQK], V [kBK][kV]}
+  uint32_t* qhi = reinterpret_cast<uint32_t*>(smem4);   // [kBQ D] each
+  uint32_t* qlo = qhi + kBQ * D;
+  uint32_t* split = qlo + kBQ * D;   // {K hi, K lo, V hi, V lo}
+  float* raw = reinterpret_cast<float*>(split + P::kSplitWords);
+  const BlockTiles bt = block_tiles<kBQ, kBK>(Hq, KVH, S, causal, window);
+  const float* kb = k + static_cast<size_t>(bt.kvh) * S * D;
+  const float* vb = v + static_cast<size_t>(bt.kvh) * S * DV;
 
-  const int bh = blockIdx.x;
-  const int b = bh / Hq;
-  const int kvh = b * KVH + (bh % Hq) / (Hq / KVH);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const float* qb = q + static_cast<size_t>(bh) * S * D;
-  const float* kb = k + static_cast<size_t>(kvh) * S * D;
-  const float* vb = v + static_cast<size_t>(kvh) * S * DV;
-  // the KV tiles holding a key some row of [q0, q0 + kBQ) may see; under a
-  // window below 1 a row may see none, and then averages every key
-  const bool all = window < 1;
-  int k_lo = 0, k_hi = S;
-  if (!all) {
-    if (causal) k_hi = min(S, q0 + kBQ);
-    k_lo = max(0, q0 - window + 1);
-  }
-  const int n_first = k_lo / kBK;
-  const int n_tiles = (k_hi + kBK - 1) / kBK - n_first;
-
-  load_rows<D, kBQ, kThreads>(qs, P::kQK, qb, q0, S, vec);
-  load_rows<D, kBK, kThreads>(ring, P::kQK, kb, n_first * kBK, S, vec);
-  load_rows<DV, kBK, kThreads>(ring + P::kKFloats, P::kV, vb, n_first * kBK,
-                               S, vec);
+  float* q_raw = reinterpret_cast<float*>(split);
+  load_rows<D, kBQ, kThreads>(q_raw, P::kQK,
+                              q + static_cast<size_t>(bt.bh) * S * D, bt.q0,
+                              S, vec);
   hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  split_q<P, D>(qhi, qlo, q_raw);
+  __syncthreads();                  // Q's staging may be overwritten
+  const auto load_tile = [&](int it) {
+    const int k0 = (bt.n_first + it) * kBK;
+    load_rows<D, kBK, kThreads>(raw, P::kQK, kb, k0, S, vec);
+    load_rows<DV, kBK, kThreads>(raw + P::kKFloats, P::kV, vb, k0, S, vec);
+    hopper::cp_async_commit();
+  };
+  if (bt.n_tiles > 0) load_tile(0);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int w_lo = q0 + 16 * warp, w_hi = w_lo + 15;   // the warp's rows
-  const int row0 = w_lo + g;                           // and row0 + 8
-
+  const int t = lane % 4;
+  const int w_lo = bt.q0 + 16 * warp, row0 = w_lo + lane / 4;
+  // the fragments, each of a lane's 16-byte words from a plane
+  const uint32_t* qh = qhi + 256 * (D / 16) * warp + 4 * lane;
+  const uint32_t* kh = split + 4 * lane;   // and K lo, V hi, V lo after it
+  const auto q_planes = [&](int j, uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const uint4 x = *reinterpret_cast<const uint4*>(qh + 128 * (2 * j + s));
+      const uint4 y = *reinterpret_cast<const uint4*>(qh + kBQ * D +
+                                                      128 * (2 * j + s));
+      hi[s][0] = x.x; hi[s][1] = x.y; hi[s][2] = x.z; hi[s][3] = x.w;
+      lo[s][0] = y.x; lo[s][1] = y.y; lo[s][2] = y.z; lo[s][3] = y.w;
+    }
+  };
+  // two k-steps of a key tile, or (V) two output tiles of a k-step
+  const auto words = [](const uint32_t* at_hi, const uint32_t* at_lo,
+                        uint32_t (&hi)[2][2], uint32_t (&lo)[2][2]) {
+    const uint4 x = *reinterpret_cast<const uint4*>(at_hi);
+    const uint4 y = *reinterpret_cast<const uint4*>(at_lo);
+    hi[0][0] = x.x; hi[0][1] = x.y; hi[1][0] = x.z; hi[1][1] = x.w;
+    lo[0][0] = y.x; lo[0][1] = y.y; lo[1][0] = y.z; lo[1][1] = y.w;
+  };
+  const auto k_planes = [&](int n, int j, uint32_t (&hi)[2][2],
+                            uint32_t (&lo)[2][2]) {
+    const uint32_t* at = kh + 128 * (n * (D / 16) + j);
+    words(at, at + kBK * D, hi, lo);
+  };
+  const auto v_planes = [&](int j, int tp, uint32_t (&hi)[2][2],
+                            uint32_t (&lo)[2][2]) {
+    const uint32_t* at = kh + 2 * kBK * D + 128 * (j * (DV / 16) + tp);
+    words(at, at + kBK * DV, hi, lo);
+  };
   float acc[DV / 8][4];
 #pragma unroll
   for (int n = 0; n < DV / 8; ++n)
@@ -425,82 +719,199 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};   // this thread's share of the row sums
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = (n_first + it) * kBK;
-    if (it + 1 < n_tiles) {
-      float* next = ring + (it + 1) % kStages * P::kStageFloats;
-      load_rows<D, kBK, kThreads>(next, P::kQK, kb, k0 + kBK, S, vec);
-      load_rows<DV, kBK, kThreads>(next + P::kKFloats, P::kV, vb, k0 + kBK,
-                                   S, vec);
+  for (int it = 0; it < bt.n_tiles; ++it) {
+    const int k0 = (bt.n_first + it) * kBK;
+    hopper::cp_async_wait<0>();     // this thread's copies of tile it
+    __syncthreads();                // everyone's; tile it - 1 read
+    split_kv<P, D, DV>(split, raw);
+    __syncthreads();                // tile it split; its raw stage free
+    if (it + 1 < bt.n_tiles) load_tile(it + 1);
+    if (!tile_live(w_lo, k0, kBK, S, bt.all, causal, window)) continue;
+    float sc[kBK / 8][4];
+    qk_tf32<kBK / 8, D, P::kJU>(sc, q_planes, k_planes);
+    float mx[2], alpha[2];
+    scale_mask(sc, mx, row0, k0, t, S, causal, window, scale_log2,
+               tile_edge(w_lo, k0, kBK, S, causal, window));
+    rescale(m, l, alpha, mx);
+    exp_rows(sc, l, m);
+    uint32_t ph[kBK / 8][4], pl[kBK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) split_p(sc[n], ph[n], pl[n]);
+    pv_tf32<DV / 8, kBK / 8, P::kNB>(acc, ph, pl, v_planes, alpha);
+  }
+  quad_sum(l);
+  store_o(o + (static_cast<size_t>(bt.bh) * S + row0) * DV + 2 * t, DV, acc,
+          l, row0, S);
+}
+
+// ---- the pair plan (D 256): two warps a 16-row strip. Each scores half
+// of a tile's keys and holds half of O's columns; they trade their row
+// maxima and their halves of P through shared memory under the strip's
+// named barrier, so a warp's O takes 64 registers, not 128, and a block
+// has 8 warps, not 4, with no product taken twice.
+
+// The pair block: K and V by cp.async into a ring of 2 (tile j + 1 in
+// flight while tile j computes), Q raw; per tile each warp scores its half
+// of the keys, publishes its row maxima, takes the partner's (barrier),
+// publishes its half of P, takes the partner's (barrier), splits the
+// whole P once and multiplies it into its half of O's columns.
+template <int D, int DV>
+__device__ __forceinline__ void fa_pair(const float* __restrict__ q,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        float* __restrict__ o, int Hq,
+                                        int KVH, int S, float scale_log2,
+                                        int causal, int window, int vec) {
+  using P = F32Plan<D, DV>;
+  constexpr int kBQ = P::kBQ, kBK = P::kBK, kThreads = P::kThreads;
+  constexpr int kNT = kBK / 8, kHT = kNT / 2;   // n8 tiles: a tile's, a warp's
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][kQK]
+  float* ring = qs + P::kQFloats;   // 2 x {K [kBK][kQK], V [kBK][kV]}
+  float* xch = ring + 2 * P::kStageFloats;   // kXchWords a warp
+  const BlockTiles bt = block_tiles<kBQ, kBK>(Hq, KVH, S, causal, window);
+  const float* kb = k + static_cast<size_t>(bt.kvh) * S * D;
+  const float* vb = v + static_cast<size_t>(bt.kvh) * S * DV;
+  const auto load_tile = [&](int it) {   // into stage it % 2
+    float* st = ring + it % 2 * P::kStageFloats;
+    const int k0 = (bt.n_first + it) * kBK;
+    load_rows<D, kBK, kThreads>(st, P::kQK, kb, k0, S, vec);
+    load_rows<DV, kBK, kThreads>(st + P::kKFloats, P::kV, vb, k0, S, vec);
+  };
+
+  load_rows<D, kBQ, kThreads>(qs, P::kQK,
+                              q + static_cast<size_t>(bt.bh) * S * D, bt.q0,
+                              S, vec);
+  if (bt.n_tiles > 0) load_tile(0);
+  hopper::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int strip = warp / 2, half = warp % 2;
+  const int w_lo = bt.q0 + 16 * strip, row0 = w_lo + g;
+  float* mine = xch + warp * P::kXchWords;
+  const float* theirs = xch + (warp ^ 1) * P::kXchWords;
+  const uint32_t bar = 1 + strip;   // the strip's named barrier (0: block)
+  const float* qw = qs + (16 * strip + g) * P::kQK + 4 * t;
+  const auto q_raw = [&](int j, uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
+    const float4 qa = *reinterpret_cast<const float4*>(qw + 16 * j);
+    const float4 qb =
+        *reinterpret_cast<const float4*>(qw + 8 * P::kQK + 16 * j);
+    // k-step s: a0 (row g), a1 (row g + 8) at column t; a2, a3 at t + 4
+    const float a[2][4] = {{qa.x, qb.x, qa.y, qb.y}, {qa.z, qb.z, qa.w, qb.w}};
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        hopper::split_tf32(a[s][i], hi[s][i], lo[s][i]);
+  };
+  float acc[P::kDvW / 8][4];
+#pragma unroll
+  for (int n = 0; n < P::kDvW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};   // this thread's share of its keys' row sums
+
+  for (int it = 0; it < bt.n_tiles; ++it) {
+    const int k0 = (bt.n_first + it) * kBK;
+    if (it + 1 < bt.n_tiles) {
+      load_tile(it + 1);
       hopper::cp_async_commit();
       hopper::cp_async_wait<1>();   // this thread's copies of tile it
     } else {
       hopper::cp_async_wait<0>();
     }
     __syncthreads();                // everyone's copies of tile it
-    const float* ks = ring + it % kStages * P::kStageFloats;
-    const float* vs = ks + P::kKFloats;
-    const bool live = w_lo < S &&
-                      (all || (!(causal && k0 > w_hi) &&
-                               w_lo - (k0 + kBK - 1) < window));
-    if (live) {
-      float sc[kBK / 8][4];
-      qk_f32<P, D>(sc, qs + (16 * warp + g) * P::kQK + 4 * t,
-                   ks + g * P::kQK + 4 * t);
-      // scale, mask, and the online softmax of rows row0 (e < 2) and
-      // row0 + 8 (e >= 2), each spread over the 4 threads of a quad
-      const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > w_lo) ||
-                        w_hi - k0 >= window;
-      float mx[2] = {kNegInf, kNegInf};
+    const float* ks = ring + it % 2 * P::kStageFloats;
+    // both warps of a strip take the same branch, and so the same barriers
+    if (tile_live(w_lo, k0, kBK, S, bt.all, causal, window)) {
+      const float* kw = ks + (kBK / 2 * half + g) * P::kQK + 4 * t;
+      const auto k_raw = [&](int n, int j, uint32_t (&hi)[2][2],
+                             uint32_t (&lo)[2][2]) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            kw + 8 * n * P::kQK + 16 * j);
+        hopper::split_tf32(x.x, hi[0][0], lo[0][0]);
+        hopper::split_tf32(x.y, hi[0][1], lo[0][1]);
+        hopper::split_tf32(x.z, hi[1][0], lo[1][0]);
+        hopper::split_tf32(x.w, hi[1][1], lo[1][1]);
+      };
+      float sc[kHT][4];
+      qk_tf32<kHT, D, P::kJU>(sc, q_raw, k_raw);
+      float mx[2], alpha[2];
+      scale_mask(sc, mx, row0, k0 + kBK / 2 * half, t, S, causal, window,
+                 scale_log2, tile_edge(w_lo, k0, kBK, S, causal, window));
+      *reinterpret_cast<float2*>(mine + 128 * kHT + 2 * lane) =
+          make_float2(mx[0], mx[1]);
+      hopper::named_bar_sync(bar, 64);
+      const float2 other =
+          *reinterpret_cast<const float2*>(theirs + 128 * kHT + 2 * lane);
+      mx[0] = fmaxf(mx[0], other.x);
+      mx[1] = fmaxf(mx[1], other.y);
+      rescale(m, l, alpha, mx);
+      exp_rows(sc, l, m);
 #pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
+      for (int n = 0; n < kHT; ++n)
+        *reinterpret_cast<float4*>(mine + 128 * n + 4 * lane) =
+            make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
+      hopper::named_bar_sync(bar, 64);
+      // the tile's whole P, split once: this warp's keys and the partner's
+      // (a warp-uniform branch; indexing the fragments by ``half`` would
+      // put them in local memory)
+      uint32_t ph[kNT][4], pl[kNT][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float s = sc[n][e] * scale_log2;
-          if (edge) {
-            const int qi = row0 + 8 * (e >> 1);
-            const int kj = k0 + 8 * n + 2 * t + (e & 1);
-            const bool ok = (!causal || qi >= kj) && qi - kj < window;
-            s = kj >= S ? -INFINITY : (ok ? s : kNegInf);
-          }
-          sc[n][e] = s;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      for (int n = 0; n < kNT; ++n) {
+        if (n / kHT == half) {
+          split_p(sc[n % kHT], ph[n], pl[n]);
+        } else {
+          const float4 x = *reinterpret_cast<const float4*>(
+              theirs + 128 * (n % kHT) + 4 * lane);
+          const float p[4] = {x.x, x.y, x.z, x.w};
+          split_p(p, ph[n], pl[n]);
         }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = hopper::exp2_ftz(m[r] - m_new);
-        m[r] = m_new;
-        l[r] *= alpha[r];
       }
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[n][e] = hopper::exp2_ftz(sc[n][e] - m[e >> 1]);
-          l[e >> 1] += sc[n][e];
-        }
-      pv_f32<P, DV>(acc, sc, vs + 2 * t * P::kV + g, alpha);
+      // this warp's columns of O += P . V: V's key 2 t of the tile at
+      // column g, split per use as the raw Q and K are
+      const float* vw = ks + P::kKFloats + 2 * t * P::kV + g + P::kDvW * half;
+      const auto v_raw = [&](int j, int tp, uint32_t (&hi)[2][2],
+                             uint32_t (&lo)[2][2]) {
+        // keys 8 j + 2 t (row t) and 8 j + 2 t + 1 (row t + 4)
+        const float* c = vw + 8 * j * P::kV + 16 * tp;
+        hopper::split_tf32(c[0], hi[0][0], lo[0][0]);
+        hopper::split_tf32(c[P::kV], hi[0][1], lo[0][1]);
+        hopper::split_tf32(c[8], hi[1][0], lo[1][0]);
+        hopper::split_tf32(c[P::kV + 8], hi[1][1], lo[1][1]);
+      };
+      pv_tf32<P::kDvW / 8, kNT, P::kNB>(acc, ph, pl, v_raw, alpha);
     }
-    __syncthreads();                // stage it % kStages may be refilled
+    __syncthreads();                // stage it % 2 may be refilled
   }
+  // each warp's share of the row sums, then its partner's
+  quad_sum(l);
+  *reinterpret_cast<float2*>(mine + 128 * kHT + 2 * lane) =
+      make_float2(l[0], l[1]);
+  hopper::named_bar_sync(bar, 64);
+  const float2 other =
+      *reinterpret_cast<const float2*>(theirs + 128 * kHT + 2 * lane);
+  l[0] += other.x;
+  l[1] += other.y;
+  store_o(o + (static_cast<size_t>(bt.bh) * S + row0) * DV + P::kDvW * half +
+              2 * t,
+          DV, acc, l, row0, S);
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float den = fmaxf(l[r], 1e-30f);
-    const int qi = row0 + 8 * r;
-    if (qi >= S) continue;
-    float* orow = o + (static_cast<size_t>(bh) * S + qi) * DV + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n) =
-          make_float2(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
-  }
+// Keys with query - key >= window are masked (S or more: no window); vec:
+// q, k and v are 16-byte aligned.
+template <int D, int DV>
+__global__ void __launch_bounds__(F32Plan<D, DV>::kThreads, 1)
+fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, int Hq,
+          int KVH, int S, float scale_log2, int causal, int window,
+          int vec) {
+  if constexpr (F32Plan<D, DV>::kOnce)
+    fa_once<D, DV>(q, k, v, o, Hq, KVH, S, scale_log2, causal, window, vec);
+  else
+    fa_pair<D, DV>(q, k, v, o, Hq, KVH, S, scale_log2, causal, window, vec);
 }
 
 template <int D, int DV>
@@ -1073,13 +1484,24 @@ int fa_launch(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory an f32 block takes at head dims (D, DV) (0 if none)
-int fa_f32_smem_bytes(int D, int DV) {
-#define FA_F32_SMEM(d, dv) \
-  if (D == d && DV == dv) return F32Plan<d, dv>::kSmemBytes;
-  FA_PAIRS(FA_F32_SMEM)
-#undef FA_F32_SMEM
-  return 0;
+// the f32 plan at head dims (D, DV) into out[10]: query rows a block, keys
+// a KV tile, warps a 16-row strip, raw K/V stages, split stages, whether K
+// and V are split once a block, the raw row strides (floats) of Q and K
+// and of V, blocks of 16 columns of S in flight, and the dynamic shared
+// memory a block takes. Returns 0, or -1 for a pair it does not take.
+int fa_f32_plan(int D, int DV, int* out) {
+#define FA_F32_PLAN(d, dv)                                                \
+  if (D == d && DV == dv) {                                               \
+    using P = F32Plan<d, dv>;                                             \
+    const int plan[10] = {P::kBQ,    P::kBK,   P::kPair, P::kRaw,         \
+                          P::kSplit, P::kOnce, P::kQK,   P::kV,           \
+                          P::kJU,    P::kSmemBytes};                      \
+    for (int i = 0; i < 10; ++i) out[i] = plan[i];                        \
+    return 0;                                                             \
+  }
+  FA_PAIRS(FA_F32_PLAN)
+#undef FA_F32_PLAN
+  return -1;
 }
 
 // the bf16 plan at head dims (D, DV) into out[5]: query rows and keys a

@@ -70,18 +70,40 @@ def tile_plan(d: int, dv: int) -> dict:
 
 
 def f32_tile_plan(d: int, dv: int) -> dict:
-    """The f32 kernel's tiles at head dims ``(d, dv)``, as ``csrc`` fixes
-    them: query rows a block (warps of 16: 8, or 4 at D 256), keys a KV
-    tile (64, or 32 at D 256), ring stages, the row strides in floats of Q
-    and K (d + 16) and of V (dv + 4), and the dynamic shared memory a
-    block takes (Q, and the ring of K and V tiles)."""
+    """The f32 kernel's plan at head dims ``(d, dv)``, as ``csrc`` fixes it
+    (``fa_f32_plan`` there). Every pair but (256, 256) splits once
+    (``split_once``): 128 query rows in 8 warps of 16, K and V of each KV
+    tile split into tf32 hi and lo once a block into one split stage of
+    fragment-ordered planes, from one raw stage, and Q split once into
+    planes; keys a tile: 128 at d 32, 64 at d 64 and 96, 32 at d 128. At
+    (256, 256), the pair plan: 64 rows in 8 warps, ``strip_warps`` 2 a
+    16-row strip (each scoring half a 32-key tile's keys and holding half
+    of O's columns), Q raw and K and V raw in a ring of 2 raw stages,
+    each warp's half of P and its row maxima exchanged in shared memory. Raw
+    rows are padded to strides (floats) of d + 16 and dv + 4;
+    ``column_blocks``: blocks of 16 columns of S whose products are in
+    flight at once. The dynamic shared memory a block takes: Q's planes
+    (or its raw tile), the split and raw stages, and the pair plan's
+    exchange."""
     _check_pair(d, dv)
-    q_rows, kv_rows, stages = (64, 32, 2) if d == 256 else (128, 64, 2)
+    once = d != 256
+    q_rows, strip_warps = (128, 1) if once else (64, 2)
+    kv_rows = {32: 128, 64: 64, 96: 64}.get(d, 32)
+    raw, split = (1, 1) if once else (2, 0)
+    warps = q_rows // 16 * strip_warps
     qk_stride, v_stride = d + 16, dv + 4
-    floats = q_rows * qk_stride + stages * kv_rows * (qk_stride + v_stride)
-    return {"q_rows": q_rows, "kv_rows": kv_rows, "stages": stages,
-            "warps": q_rows // 16, "qk_stride": qk_stride,
-            "v_stride": v_stride, "smem_bytes": 4 * floats}
+    raw_words = raw * kv_rows * (qk_stride + v_stride)
+    if once:
+        words = 2 * q_rows * d + split * 2 * kv_rows * (d + dv) + raw_words
+    else:
+        words = q_rows * qk_stride + raw_words \
+            + warps * (kv_rows // 16 * 128 + 64)
+    return {"q_rows": q_rows, "kv_rows": kv_rows,
+            "strip_warps": strip_warps, "warps": warps,
+            "raw_stages": raw, "split_stages": split, "split_once": once,
+            "qk_stride": qk_stride, "v_stride": v_stride,
+            "column_blocks": 4 if d == 128 else 2,
+            "smem_bytes": 4 * words}
 
 
 def kernel_window(window: Optional[int], S: int) -> int:
@@ -104,11 +126,10 @@ def load_library() -> ctypes.CDLL:
         lib.fa_launch.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
-        lib.fa_f32_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.fa_f32_smem_bytes.restype = ctypes.c_int
-        lib.fa_bf16_plan.argtypes = [ctypes.c_int, ctypes.c_int,
-                                     ctypes.POINTER(ctypes.c_int)]
-        lib.fa_bf16_plan.restype = ctypes.c_int
+        for plan in (lib.fa_bf16_plan, lib.fa_f32_plan):
+            plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)]
+            plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -123,6 +144,20 @@ def built_tile_plan(d: int, dv: int) -> dict:
     q_rows, kv_rows, stages, split, smem = out
     return {"q_rows": q_rows, "kv_rows": kv_rows, "k_stages": stages,
             "v_stages": stages, "split": bool(split), "smem_bytes": smem}
+
+
+def built_f32_tile_plan(d: int, dv: int) -> dict:
+    """The f32 plan as a built library reports it (``fa_f32_plan``), in
+    ``f32_tile_plan``'s keys: what ``f32_tile_plan`` mirrors."""
+    _check_pair(d, dv)
+    out = (ctypes.c_int * 10)()
+    if load_library().fa_f32_plan(d, dv, out):
+        raise ValueError(f"the library has no f32 plan for {(d, dv)}")
+    rows, keys, strip_warps, raw, split, once, qk, v, blocks, smem = out
+    return {"q_rows": rows, "kv_rows": keys, "strip_warps": strip_warps,
+            "raw_stages": raw, "split_stages": split,
+            "split_once": bool(once), "qk_stride": qk, "v_stride": v,
+            "column_blocks": blocks, "smem_bytes": smem}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

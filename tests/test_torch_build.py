@@ -72,10 +72,10 @@ def test_the_port_sources_hash_their_headers():
 def test_ptxas_report():
     rep = build.ptxas_report(PTXAS_LOG)
     assert rep["kernels"] == [
-        {"name": "_Z6kernelILi64EEvv", "registers": 168, "spill_stores": 0,
-         "spill_loads": 0},
-        {"name": "_Z5otherv", "registers": 255, "spill_stores": 24,
-         "spill_loads": 16}]
+        {"name": "_Z6kernelILi64EEvv", "registers": 168, "stack_bytes": 0,
+         "spill_stores": 0, "spill_loads": 0},
+        {"name": "_Z5otherv", "registers": 255, "stack_bytes": 8,
+         "spill_stores": 24, "spill_loads": 16}]
     assert len(rep["wgmma_serialized"]) == 1
     assert "_Z5otherv" in rep["wgmma_serialized"][0]
     clean = build.ptxas_report(PTXAS_LOG.split("ptxas info    : (C7515)")[0])

@@ -286,6 +286,17 @@ EMULATION_CASES = {
     "d256_diagonal_mid_tile": (1, 4, 1, 208, 256, None, 64, 64, True,
                                None),
     "d256_band_mid_tile": (1, 4, 2, 208, 256, 77, 64, 64, True, None),
+    # the f32 pair plan scores each 32-key tile in two 16-key halves, one
+    # a warp: S 200 = 6 x 32 + 8 and 3 x 64 + 8 (the last tile's second
+    # half wholly past S, a ragged row block), a band's lower edge inside
+    # halves under GQA; and S 20, one tile, the second half past S
+    "d256_band_mid_16": (1, 4, 2, 200, 256, 45, 64, 64, True, None),
+    "d256_one_ragged_tile": (1, 4, 1, 20, 256, None, 32, 32, False, 0.2),
+    # the f32 plans' 128-key tiles at D 32 and 32-key tiles at D 128: a
+    # ragged last tile and row block, the diagonal and a band's lower edge
+    # inside tiles
+    "d32_band_mid_128": (1, 4, 2, 300, 32, 77, 64, 64, True, None),
+    "d128_band_mid_32": (1, 4, 2, 200, 128, 45, 64, 64, True, None),
     # a window below 1: causal, every row averages all S values; not
     # causal, rows see the keys at least 1 - window ahead, the last none
     "window_zero": (1, 4, 2, 192, 64, 0, 64, 64, True, None),
@@ -303,6 +314,13 @@ EMULATION_DV_CASES = {
     # diagonal on GQA at the MLA's scale 96^-0.5
     "mla_96_64_ragged": ((1, 4, 2, 320, 96, None, 64, 64, True,
                           96 ** -0.5), 64),
+    # 64-key tiles under 128-row blocks: S 300 = 4 x 64 + 44 and 2 x 128 +
+    # 44 (a ragged last tile and row block), the causal diagonal and a
+    # band's lower edge inside tiles; and not causal, a scale, S 150
+    "mla_96_64_band_mid": ((1, 4, 2, 300, 96, 45, 64, 64, True,
+                            96 ** -0.5), 64),
+    "mla_96_64_not_causal_ragged": ((1, 2, 1, 150, 96, None, 32, 32,
+                                     False, 0.3), 64),
 }
 
 
@@ -400,8 +418,10 @@ def test_kernel_input_checks():
 
 # ----------------------------------------------- the f32 kernel's 3xTF32
 # What csrc/flash_attention.cu's f32 path computes, in f32 torch: query
-# blocks over KV tiles as ``f32_tile_plan`` fixes them (128 x 64; 64 x 32
-# at D 256), in ``_emulate_kernel``'s order and masking; each product
+# blocks over KV tiles as ``f32_tile_plan`` fixes them (128 rows over 128,
+# 64 or 32 keys; 64 x 32 at D 256), in ``_emulate_kernel``'s order and
+# masking (where a value is split, once a block or once a warp, and which
+# warp scores which keys, leave the arithmetic as it is); each product
 # (q.k^T, then p.v) taken as three TF32 products, hi.hi + hi.lo + lo.hi, of
 # operands split as hi = tf32(x), lo = tf32(x - hi), lo.lo dropped;
 # tf32(x) rounds to 10 mantissa bits, to nearest with ties away from zero
@@ -475,16 +495,46 @@ def test_one_tf32_product_is_outside_the_tolerance(case):
 def test_f32_tile_plan_fits_a_block(d, dv):
     plan = ops.f32_tile_plan(d, dv)
     assert plan["smem_bytes"] <= ops.SMEM_MAX   # the most a block may use
-    assert plan["q_rows"] == 16 * plan["warps"]    # m16 rows a warp
-    assert plan["kv_rows"] % 32 == 0 and plan["stages"] >= 2
-    assert d % 16 == 0 and dv % 8 == 0   # whole k-steps, whole n8 tiles
-    # conflict-free fragment loads: 16-byte loads of rows g, g + 1 (Q, K),
-    # 4-byte loads of rows 2t, 2t + 1 at column g (V)
-    assert plan["qk_stride"] % 32 == 16 and (2 * plan["v_stride"]) % 32 == 8
-    assert plan["qk_stride"] >= d and plan["v_stride"] >= dv
-    floats = plan["q_rows"] * plan["qk_stride"] + plan["stages"] * \
-        plan["kv_rows"] * (plan["qk_stride"] + plan["v_stride"])
-    assert plan["smem_bytes"] == 4 * floats
+    rows, keys, pair = plan["q_rows"], plan["kv_rows"], plan["strip_warps"]
+    qk, vs = plan["qk_stride"], plan["v_stride"]
+    # m16 strips of rows, ``strip_warps`` warps a strip, each with whole
+    # n8 tiles of O's columns, in pairs (a 16-byte fragment load of V)
+    assert rows % 16 == 0 and plan["warps"] == rows // 16 * pair == 8
+    assert d % 16 == 0 and (dv // pair) % 16 == 0
+    # S's keys in groups of 4 n8 tiles (split once) or halves of whole n8
+    # tiles (pairs of warps), its 16-column blocks in rounds of
+    # ``column_blocks``
+    assert keys % (32 if plan["split_once"] else 16) == 0
+    assert (d // 16) % plan["column_blocks"] == 0
+    threads = 32 * plan["warps"]
+    # whole rounds of 16-byte copies: Q's rows, K's and V's
+    assert all(n % (4 * threads) == 0
+               for n in (rows * d, keys * d, keys * dv))
+    # the raw rows' strides: conflict-free 16-byte loads of rows g, g + 1
+    # (Q, K), 4-byte loads of rows 2t, 2t + 1 at column g (V)
+    assert qk == d + 16 and qk % 32 == 16
+    assert vs == dv + 4 and (2 * vs) % 32 == 8
+    raw = plan["raw_stages"] * keys * (qk + vs)
+    if plan["split_once"]:
+        # one raw stage split into one split stage; every thread splits
+        # whole rounds of fragment units (Q's, K's, V's)
+        assert (pair, plan["raw_stages"], plan["split_stages"]) == (1, 1, 1)
+        assert all(n % threads == 0
+                   for n in (rows * d // 8, keys * d // 4, keys * dv // 4))
+        q_words = 2 * rows * d                       # Q's hi and lo planes
+        split = 2 * keys * (d + dv)                  # K's and V's
+        # Q's raw tile is staged over the split and raw stages
+        assert rows * qk <= split + raw
+        assert plan["smem_bytes"] == 4 * (q_words + split + raw)
+    else:
+        # the pair plan: raw Q, a ring of 2, and each warp's half of P (4
+        # words a lane an n8 tile) and its row maxima (2 a lane)
+        assert (pair, plan["raw_stages"], plan["split_stages"]) == (2, 2, 0)
+        xch = plan["warps"] * (keys // 16 * 128 + 64)
+        assert plan["smem_bytes"] == 4 * (rows * qk + raw + xch)
+    # the pair plan at gemma-2b's head dims, where Q's planes and a warp's
+    # whole O do not fit; split once everywhere else
+    assert plan["split_once"] == ((d, dv) != (256, 256))
     for pair in ((80, 80), (32, 16), (64, 96)):
         with pytest.raises(ValueError, match="head dims"):
             ops.f32_tile_plan(*pair)

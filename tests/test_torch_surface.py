@@ -10,10 +10,16 @@ parity tests. ``GAPS`` is the one table of what the port leaves out or
 names otherwise, each entry with its reason; an entry that names nothing
 in the reference, or a gap the port has since closed, fails the table.
 
-Nothing is imported from either package: the files are parsed.
+Nothing is imported from either package for that: the files are parsed.
+The names a reference module lists in ``__all__`` are then looked up in the
+port module itself, imported, and a re-export is imported first in a fresh
+interpreter.
 """
 import ast
+import importlib
 import os
+import subprocess
+import sys
 from typing import Dict, NamedTuple, Optional
 
 import pytest
@@ -273,3 +279,70 @@ def test_every_gap_is_real_and_has_a_reason(gap):
 
 def test_the_table_excuses_nothing_twice():
     assert len({g.what for g in GAPS}) == len(GAPS)
+
+
+def _exports(tree: ast.Module) -> list:
+    """The names of a module's literal ``__all__`` (none if it has none)."""
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    return []
+
+
+def _defined_in(module: str, name: str) -> str:
+    """The reference module that defines ``name`` as ``module`` binds it: the
+    source of a relative ``from .x import name``, else ``module`` itself."""
+    package = os.path.dirname(module)
+    for node in REF_MODULES[module].body:
+        if isinstance(node, ast.ImportFrom) and node.level >= 1 and \
+                any((a.asname or a.name) == name for a in node.names):
+            base = package
+            for _ in range(node.level - 1):
+                base = os.path.dirname(base)
+            path = os.path.join(base, *(node.module or "").split("."))
+            return path + ".py" if path + ".py" in REF_MODULES \
+                else os.path.join(path, "__init__.py")
+    return module
+
+
+EXPORTING = sorted(m for m in REF_MODULES
+                   if _exports(REF_MODULES[m]) and _port_module(m))
+
+
+@pytest.mark.parametrize("module", EXPORTING)
+def test_port_module_binds_every_name_the_references_all_lists(module):
+    """What a caller imports from the reference's module by name (its
+    ``__all__``, re-exports included) imports from the port's; a name the
+    port leaves out on purpose has its ``GAPS`` row where the reference
+    defines it. The port module is imported, so a name bound on first use
+    (a module ``__getattr__``) counts."""
+    port_module = _port_module(module)
+    dotted = "repro_torch." + port_module[:-len(".py")].replace(os.sep, ".")
+    mod = importlib.import_module(dotted.removesuffix(".__init__"))
+    missing = [n for n in _exports(REF_MODULES[module])
+               if not hasattr(mod, n)
+               and f"{_defined_in(module, n)}::{n}" not in NAME_GAPS]
+    assert missing == [], f"{module}: the port's {dotted} lacks {missing}"
+
+
+@pytest.mark.parametrize("statement", [
+    "from repro_torch.kernels.fingerprint.ref import fingerprint_chunks_ref\n"
+    "import repro_torch.core.fingerprint as fp\n"
+    "assert fingerprint_chunks_ref is fp.fingerprint_chunks_ref",
+    "from repro_torch.optim import (compressed_psum, dequantize_int8,\n"
+    "                               init_error_feedback, quantize_int8)\n"
+    "from repro_torch.optim import compression as c\n"
+    "assert (compressed_psum, dequantize_int8, init_error_feedback,\n"
+    "        quantize_int8) == (c.compressed_psum, c.dequantize_int8,\n"
+    "                           c.init_error_feedback, c.quantize_int8)",
+], ids=["fingerprint_ref", "optim"])
+def test_a_re_export_imports_first_in_a_fresh_interpreter(statement):
+    """A re-exported name imports in a process that imports nothing of the
+    port before it: ``kernels/fingerprint/ref.py`` binds its oracle on first
+    use, since ``core/fingerprint.py`` imports that module."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-c", statement], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
