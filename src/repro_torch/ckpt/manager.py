@@ -68,6 +68,7 @@ from ..core import (BuildReport, Instruction, LayerStore, PassiveRegistry,
                     replicate_fanout)
 from ..device import resolve_device
 from ..ft.faults import CrashInjected
+from ..tracing import recording, span
 
 
 def flatten_tree(tree, prefix="") -> Dict[str, torch.Tensor]:
@@ -275,18 +276,30 @@ class CheckpointManager:
                 if not self.policy.async_write:
                     self.wait()
                 return BuildReport()
-        if self.policy.incremental and self.latest_step() is not None:
-            fn = self._save_incremental
-        else:
-            fn = self._save_full
+        incremental = self.policy.incremental and \
+            self.latest_step() is not None
         if self.policy.async_write:
             payloads = {k: {n: t.clone() for n, t in tree.items()}
                         for k, tree in payloads.items()}
-            self._pending = self._pool.submit(fn, step, payloads)
+            self._pending = self._pool.submit(self._save, incremental, step,
+                                              payloads)
             return BuildReport()
-        report = fn(step, payloads)
+        report = self._save(incremental, step, payloads)
         self.last_report = report
         self.wait()                 # a sharded save's barrier
+        return report
+
+    def _save(self, incremental: bool, step: int,
+              payloads: Dict[str, Dict[str, torch.Tensor]]) -> BuildReport:
+        """The save's work, in one ``ckpt.save`` span that ends carrying
+        its report's counters."""
+        with span("ckpt.save", step=step,
+                  kind="incremental" if incremental else "full") as sp:
+            report = (self._save_incremental if incremental
+                      else self._save_full)(step, payloads)
+            if recording():
+                sp.set(**{k: getattr(report, k)
+                          for k in BuildReport._COUNTERS})
         return report
 
     def _compute_fps(self, payloads: Dict[str, Dict[str, torch.Tensor]],
@@ -323,11 +336,12 @@ class CheckpointManager:
         if self.policy.use_fingerprints:
             # bootstrap the change detector for the NEXT incremental save
             stats: dict = {}
-            self._last_fps = fps if fps is not None else \
-                self._compute_fps(payloads, stats)
+            with span("ckpt.detect") as sp:
+                self._last_fps = fps if fps is not None else \
+                    self._compute_fps(payloads, stats)
+                sp.set(bytes_d2h=stats.get("bytes_d2h", 0))
             report.bytes_d2h += stats.get("bytes_d2h", 0)
-        self._gc()
-        self._publish()
+        self._retain()
         return report
 
     def _save_incremental(self, step: int,
@@ -338,14 +352,17 @@ class CheckpointManager:
         manifest, _ = self.store.read_image(self.image, self.tag_of(prev))
         stats: dict = {}
         new_fps: Dict[str, np.ndarray] = {}
-        if self.policy.use_fingerprints:
-            new_fps = self._compute_fps(payloads, stats)
-        layers = [self.store.read_layer(lid) for lid in manifest.layer_ids]
-        if self.policy.use_fingerprints:
-            diffs = diff_image(layers, payloads,
-                               old_fps=self._last_fps, new_fps=new_fps)
-        else:
-            diffs = diff_image(layers, payloads)
+        with span("ckpt.detect") as sp:
+            if self.policy.use_fingerprints:
+                new_fps = self._compute_fps(payloads, stats)
+            layers = [self.store.read_layer(lid)
+                      for lid in manifest.layer_ids]
+            if self.policy.use_fingerprints:
+                diffs = diff_image(layers, payloads,
+                                   old_fps=self._last_fps, new_fps=new_fps)
+            else:
+                diffs = diff_image(layers, payloads)
+            sp.set(bytes_d2h=stats.get("bytes_d2h", 0))
         try:
             _, _, report = inject_image_multi(
                 self.store, self.image, self.tag_of(prev),
@@ -363,9 +380,13 @@ class CheckpointManager:
         report.bytes_d2h += stats.get("bytes_d2h", 0)
         if self.policy.use_fingerprints:
             self._last_fps = new_fps or self._last_fps
-        self._gc()
-        self._publish()
+        self._retain()
         return report
+
+    def _retain(self) -> None:
+        with span("ckpt.retain"):
+            self._gc()
+            self._publish()
 
     def _gc(self) -> None:
         """Retention (``prune_steps``). Runs after the manifest commit, on

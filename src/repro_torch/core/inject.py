@@ -56,6 +56,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..tracing import span
 from .chunker import TensorRecord
 from .diff import LayerDiff, diff_image
 from .fingerprint import fingerprint_chunk_bytes_ref
@@ -170,6 +171,18 @@ def inject_image_multi(store: LayerStore,
     "batch" (default: one concurrent fsync flush at the commit point),
     "full", or None to keep the store's own mode.
     """
+    with span("store.inject") as sp:
+        out = _inject_image_multi(store, name, tag, new_tag, diffs,
+                                  providers, durability)
+        sp.set(chunks=out[2].chunks_written, bytes_hashed=out[2].bytes_hashed,
+               bytes_written=out[2].bytes_serialized)
+    return out
+
+
+def _inject_image_multi(store: LayerStore, name: str, tag: str, new_tag: str,
+                        diffs: Dict[str, LayerDiff], providers,
+                        durability: Optional[str]
+                        ) -> Tuple[Manifest, ImageConfig, BuildReport]:
     report = BuildReport()
     t0 = time.perf_counter()
     fsyncs0, commits0 = store.fsyncs, store.commits
@@ -305,7 +318,10 @@ def inject_image_multi(store: LayerStore,
         new_manifest = Manifest(name=name, tag=new_tag,
                                 layer_ids=[l.layer_id for l in new_layers],
                                 config_id=new_config.config_id)
-        store.write_image(new_manifest, new_config)
+        with span("store.flush") as sp:
+            f0 = store.fsyncs
+            store.write_image(new_manifest, new_config)
+            sp.set(fsyncs=store.fsyncs - f0)
 
     report.fsyncs = store.fsyncs - fsyncs0
     report.manifest_commits = store.commits - commits0

@@ -79,6 +79,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..ft.faults import CrashInjected, fault_point
 from ..ft.retry import RetryHealth, RetryPolicy
+from ..tracing import recording, span
 from .chunker import hash_pool, sha256_hex
 from .delta import (BundleEntry, BundleIndex, DeltaBundle, DeltaFormatError,
                     compose_delta_records, decode_delta, decode_index,
@@ -1189,19 +1190,20 @@ def replicate_fanout(src: LayerStore, remotes: Sequence,
             except Exception as e:  # noqa: BLE001
                 fail(i, e)
 
-        if len(receivers) > 1 and pool is not None:
-            for f in [pool.submit(plan, i) for i in range(len(receivers))]:
-                f.result()
-        else:
-            for i in range(len(receivers)):
-                plan(i)
-        for i in sorted(plans):
-            if not alive(i):
-                continue
-            for h in plans[i]:
-                want.setdefault(h, []).append(i)
-        fan.negotiation_rounds = max(
-            (r.negotiations for r in receivers), default=0)
+        with span("registry.negotiate"):
+            if len(receivers) > 1 and pool is not None:
+                for f in [pool.submit(plan, i) for i in range(len(receivers))]:
+                    f.result()
+            else:
+                for i in range(len(receivers)):
+                    plan(i)
+            for i in sorted(plans):
+                if not alive(i):
+                    continue
+                for h in plans[i]:
+                    want.setdefault(h, []).append(i)
+            fan.negotiation_rounds = max(
+                (r.negotiations for r in receivers), default=0)
 
         # ---- ONE source read pass, broadcast on the pipelined transfer:
         # one pool task per blob reads it (exactly once) and verifies +
@@ -1249,18 +1251,22 @@ def replicate_fanout(src: LayerStore, remotes: Sequence,
                 for i in targets:
                     receive(i, h, data)
 
-        for off in range(0, len(hashes), _TRANSFER_BATCH):
-            wave = hashes[off:off + _TRANSFER_BATCH]
-            if pool is None or len(wave) <= 1:
-                for h in wave:
-                    ship(h)
-            else:
-                for f in [pool.submit(ship, h) for h in wave]:
+        with span("registry.transfer") as sp:
+            for off in range(0, len(hashes), _TRANSFER_BATCH):
+                wave = hashes[off:off + _TRANSFER_BATCH]
+                if pool is None or len(wave) <= 1:
+                    for h in wave:
+                        ship(h)
+                else:
+                    for f in [pool.submit(ship, h) for h in wave]:
+                        f.result()
+                # all ships joined, so no more receives get scheduled: drain
+                for f in recv_futures:
                     f.result()
-            # all ships joined, so no more receives get scheduled: drain
-            for f in recv_futures:
-                f.result()
-            recv_futures.clear()
+                recv_futures.clear()
+            if recording():
+                sp.set(blobs=fan.blobs_broadcast,
+                       bytes=sum(r.stats.bytes_payload for r in receivers))
 
         # ---- per-replica finalize: descriptors (encoded ONCE for all
         # replicas), incremental verification, the manifest commit —
@@ -1289,13 +1295,14 @@ def replicate_fanout(src: LayerStore, remotes: Sequence,
             except Exception as e:  # noqa: BLE001
                 fail(i, e)
 
-        live = [i for i in range(len(receivers)) if alive(i)]
-        if len(live) > 1 and pool is not None:
-            for f in [pool.submit(safe_finalize, i) for i in live]:
-                f.result()
-        else:
-            for i in live:
-                safe_finalize(i)
+        with span("registry.commit"):
+            live = [i for i in range(len(receivers)) if alive(i)]
+            if len(live) > 1 and pool is not None:
+                for f in [pool.submit(safe_finalize, i) for i in live]:
+                    f.result()
+            else:
+                for i in live:
+                    safe_finalize(i)
     if retry is not None:
         # batch scopes restored first: each retry attempt opens its own,
         # so a retried replica's fsyncs are flushed by ITS commit

@@ -59,6 +59,7 @@ import torch
 from ..ft.faults import CrashInjected, fault_point
 from ..ft.scrub import (N_SHARDS, ScrubFinding, ScrubReport, clear_cursor,
                         load_cursor, save_cursor)
+from ..tracing import span
 from .chunker import (DEFAULT_CHUNK_BYTES, TensorRecord, assemble_tensor,
                       chunk_tensor, dtype_str, sha256_hex, shape_of)
 from .fingerprint import fingerprint_tree_packed
@@ -921,6 +922,16 @@ class LayerStore:
         *derivation* — it is re-executed on every rebuild, which is exactly
         the fall-through cost the paper attacks.
         """
+        with span("store.inject") as sp:
+            out = self._build_image(name, tag, instructions, providers,
+                                    parent, arch)
+            sp.set(chunks=out[2].chunks_written,
+                   bytes_hashed=out[2].bytes_hashed,
+                   bytes_written=out[2].bytes_serialized)
+        return out
+
+    def _build_image(self, name, tag, instructions, providers, parent, arch
+                     ) -> Tuple[Manifest, ImageConfig, BuildReport]:
         report = BuildReport()
         t0 = time.perf_counter()
         fsyncs0, commits0 = self.fsyncs, self.commits
@@ -998,7 +1009,10 @@ class LayerStore:
                              history=history)
         manifest = Manifest(name=name, tag=tag, layer_ids=layer_ids,
                             config_id=config.config_id)
-        self.write_image(manifest, config)
+        with span("store.flush") as sp:
+            f0 = self.fsyncs
+            self.write_image(manifest, config)
+            sp.set(fsyncs=self.fsyncs - f0)
         report.fsyncs = self.fsyncs - fsyncs0
         report.manifest_commits = self.commits - commits0
         report.wall_seconds = time.perf_counter() - t0

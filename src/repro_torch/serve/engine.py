@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Set
+from typing import (Any, Dict, Iterable, List, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -43,6 +44,7 @@ from ..ft.faults import CrashInjected, fault_point
 from ..ft.retry import RetryPolicy
 from ..models import decode_step, init_cache, prefill
 from ..models.config import ModelConfig
+from ..tracing import recording, span
 
 
 @dataclass
@@ -148,6 +150,12 @@ def _leaves(tree) -> int:
     return 1
 
 
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.nbytes
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -190,6 +198,7 @@ class Engine:
         self._prev_step: Optional[int] = None
         self._rollbacks = 0
         self._last_rollback_step: Optional[int] = None
+        self._batches = 0               # generate calls: a span's ``seq``
 
     def health(self) -> EngineHealth:
         return EngineHealth(
@@ -209,6 +218,15 @@ class Engine:
         clone of the live tree (unchanged leaves stay resident and shared),
         which is bit-identical to a full reload of the same revision.
         Returns the number of leaves swapped in."""
+        with span("engine.refresh", full=changed is None) as sp:
+            n, nbytes = self._refresh(params, changed, step)
+            sp.set(leaves=n, bytes=nbytes)
+        return n
+
+    def _refresh(self, params, changed: Optional[Iterable[str]],
+                 step: Optional[int]) -> Tuple[int, int]:
+        """``refresh``'s swap -> (leaves swapped in, bytes copied to the
+        device; the full path counts its bytes only while tracing)."""
         # stash last-known-good BEFORE any mutation: the sparse path is
         # copy-on-write, so the stashed tree is never aliased into the new
         self._prev_params = self.params
@@ -217,10 +235,11 @@ class Engine:
             self.params = _to_device(params, self.device)
             self.last_refresh_leaves = _leaves(params)
             self._stamp_refresh(step)
-            return self.last_refresh_leaves
+            return self.last_refresh_leaves, \
+                _nbytes(params) if recording() else 0
         root = dict(self.params)
         fresh = {id(root)}          # nodes already copied this refresh
-        n = 0
+        n = nbytes = 0
         for path in sorted(set(changed)):
             node, parts = root, path.split("/")
             for p in parts[:-1]:
@@ -244,10 +263,11 @@ class Engine:
                 leaf = leaf[p]
             node[parts[-1]] = leaf.to(self.device)
             n += 1
+            nbytes += leaf.nbytes
         self.params = root
         self.last_refresh_leaves = n
         self._stamp_refresh(step)
-        return n
+        return n, nbytes
 
     def rollback(self) -> bool:
         """Restore the param tree that served before the last ``refresh``
@@ -276,30 +296,53 @@ class Engine:
         above it each token is drawn by ``sample_logits`` from one
         generator on the engine's device, seeded with ``seed``, that draws
         once for the first token and once a step after that (the
-        reference's ``key, sub = split(key)`` sequence)."""
+        reference's ``key, sub = split(key)`` sequence).
+
+        Spans: ``engine.prefill`` runs to the first token's copy to the
+        host, and each ``engine.decode_step`` to the copy of the token it
+        produced (the last one to ``logits_last``'s); each copy is an
+        ``engine.token_wait``, the host blocked on the device."""
         B, S = prompts.shape
         if S + steps > self.max_len and not self.cfg.window:
             raise ValueError("prompt + steps exceeds the cache")
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        cache = init_cache(self.cfg, B, self.max_len, self.device)
-        # prefill builds a cache sized cache_len(S); splice it into the
-        # full-size decode cache ring-consistently
-        pf_cache, logits = prefill(
-            self.cfg, self.params,
-            torch.as_tensor(prompts, dtype=torch.long, device=self.device))
-        cache = self._splice(cache, pf_cache, S)
-        out = np.zeros((B, steps), np.int32)
-        tok = self._sample(logits, temperature, gen)
-        for i in range(steps):
-            out[:, i] = tok.cpu().numpy()
-            cache, logits = decode_step(self.cfg, self.params, cache, tok,
-                                        S + i)
-            tok = self._sample(logits, temperature, gen)
-            if stop_token is not None and bool((out[:, i] == stop_token).all()):
-                out = out[:, :i + 1]
-                break
-        return GenerationResult(tokens=out,
-                                logits_last=logits.float().cpu().numpy())
+        self._batches += 1
+        with span("engine.generate", batch=B, prompt=S, steps=steps,
+                  seq=self._batches):
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            out = np.zeros((B, steps), np.int32)
+            with span("engine.prefill"):
+                cache = init_cache(self.cfg, B, self.max_len, self.device)
+                # prefill builds a cache sized cache_len(S); splice it into
+                # the full-size decode cache ring-consistently
+                pf_cache, logits = prefill(
+                    self.cfg, self.params,
+                    torch.as_tensor(prompts, dtype=torch.long,
+                                    device=self.device))
+                cache = self._splice(cache, pf_cache, S)
+                tok = self._sample(logits, temperature, gen)
+                with span("engine.token_wait"):
+                    if steps:
+                        out[:, 0] = tok.cpu().numpy()
+                    else:
+                        logits_last = logits.float().cpu().numpy()
+            for i in range(steps):
+                # token i is on the host already: stop after its step
+                stop = stop_token is not None and \
+                    bool((out[:, i] == stop_token).all())
+                last = stop or i == steps - 1
+                with span("engine.decode_step", pos=S + i):
+                    cache, logits = decode_step(self.cfg, self.params, cache,
+                                                tok, S + i)
+                    tok = self._sample(logits, temperature, gen)
+                    with span("engine.token_wait"):
+                        if last:
+                            logits_last = logits.float().cpu().numpy()
+                        else:
+                            out[:, i + 1] = tok.cpu().numpy()
+                if stop:
+                    out = out[:, :i + 1]
+                    break
+        return GenerationResult(tokens=out, logits_last=logits_last)
 
     def _sample(self, logits: torch.Tensor, temperature: float,
                 gen: torch.Generator) -> torch.Tensor:
@@ -524,7 +567,10 @@ class CheckpointFollower:
         crashing poll leaves a readable record; see ``health()``."""
         self._polls += 1
         try:
-            upd = self._poll_inner()
+            with span("follower.poll") as sp:
+                upd = self._poll_inner()
+                if upd is not None:
+                    sp.set(step=upd.step, full=upd.full)
         except Exception as e:  # noqa: BLE001
             self._failures += 1
             self._consecutive_failures += 1
@@ -558,13 +604,18 @@ class CheckpointFollower:
             return None
         tag = f"step-{step:08d}"
         pulled = None
-        if index is not None and passive_step == step:
-            pulled = self._pull_passive(index, tag)
-            if pulled is None and self.last_plan is not None and \
-                    self.remote is not None:
-                self.last_plan.fallback = "remote"
-        if pulled is None and self.remote is not None:
-            pulled = self._pull(tag)
+        with span("follower.pull") as sp:
+            if index is not None and passive_step == step:
+                pulled = self._pull_passive(index, tag)
+                if pulled is None and self.last_plan is not None and \
+                        self.remote is not None:
+                    self.last_plan.fallback = "remote"
+            if pulled is None and self.remote is not None:
+                pulled = self._pull(tag)
+            if pulled is not None:
+                sp.set(bytes_sent=pulled.bytes_sent,
+                       blobs_sent=pulled.blobs_sent,
+                       blobs_hashed_remote=pulled.blobs_hashed_remote)
         if pulled is None:           # tag pruned mid-pull / no usable
             return None              # chain: retry next poll
         self.last_pull = pulled
@@ -572,8 +623,9 @@ class CheckpointFollower:
         changed: Optional[Set[str]] = None
         if self.sparse and self.last_step is not None:
             prev_tag = f"step-{self.last_step:08d}"
-            changed = changed_tensor_paths(self.local, self.image,
-                                           prev_tag, tag)
+            with span("follower.plan"):
+                changed = changed_tensor_paths(self.local, self.image,
+                                               prev_tag, tag)
         # verify gate: re-hash exactly the blobs this refresh will consume
         # BEFORE assembling tensors from them. A corrupt revision (at-rest
         # bit-rot, a persisted torn write) gets one in-line anti-entropy
@@ -582,27 +634,35 @@ class CheckpointFollower:
         # engine keeps serving last-known-good weights and the next poll
         # retries the same tag against a possibly-healthier remote.
         if self.verify:
-            bad = self._verify_revision(tag, changed)
-            if bad:
-                self._corrupt_polls += 1
-                if self._repair_revision(tag):
-                    bad = self._verify_revision(tag, changed)
+            with span("follower.verify") as sp:
+                hashed = [0, 0]             # blobs, bytes
+                bad = self._verify_revision(tag, changed, hashed)
+                if bad:
+                    self._corrupt_polls += 1
+                    if self._repair_revision(tag):
+                        bad = self._verify_revision(tag, changed, hashed)
+                sp.set(blobs=hashed[0], bytes=hashed[1])
             if bad:
                 self.last_verify_error = (
                     f"{tag}: {bad[0]}" +
                     (f" (+{len(bad) - 1} more)" if len(bad) > 1 else ""))
                 return None
-        flat = self.local.load_image_payload(
-            self.image, tag, names=None if changed is None else changed)
+        with span("follower.load") as sp:
+            flat = self.local.load_image_payload(
+                self.image, tag, names=None if changed is None else changed)
+            if recording():
+                sp.set(tensors=len(flat),
+                       bytes=sum(t.nbytes for t in flat.values()))
         self.last_step = step
         # retention: drop superseded local checkpoints + sweep their blobs
         # — at EVERY tier this follower feeds, or the edge stores would
         # accumulate one committed step per poll forever
-        prune_steps(self.local, self.image, self.keep)
-        if self.relay is not None:
-            for s in self.relay.all_stores():
-                if s is not self.local:
-                    prune_steps(s, self.image, self.keep)
+        with span("follower.prune"):
+            prune_steps(self.local, self.image, self.keep)
+            if self.relay is not None:
+                for s in self.relay.all_stores():
+                    if s is not self.local:
+                        prune_steps(s, self.image, self.keep)
         opt_flat = {k[len("opt/"):]: v for k, v in flat.items()
                     if k.startswith("opt/")}
         opt_flat.pop("__step__", None)
@@ -622,13 +682,14 @@ class CheckpointFollower:
         )
         return self.last_update
 
-    def _verify_revision(self, tag: str,
-                         changed: Optional[Set[str]]) -> List[str]:
+    def _verify_revision(self, tag: str, changed: Optional[Set[str]],
+                         hashed: List[int]) -> List[str]:
         """Re-hash the local blobs the coming refresh will consume —
         scoped to the sparse plan's changed tensors when there is one (the
         unchanged leaves already serve from device memory; their disk
         state is the background scrub's business, not this hot path's).
-        Returns human-readable problems, empty = clean."""
+        Returns human-readable problems, empty = clean; ``hashed`` (blobs,
+        bytes) adds up what was re-hashed."""
         st = self.local
         problems: List[str] = []
         try:
@@ -640,7 +701,10 @@ class CheckpointFollower:
                         continue
                     for h in rec.chunks:
                         try:
-                            if sha256_hex(st.read_blob(h)) != h:
+                            data = st.read_blob(h)
+                            hashed[0] += 1
+                            hashed[1] += len(data)
+                            if sha256_hex(data) != h:
                                 problems.append(
                                     f"corrupt blob {h[:12]} ({rec.name})")
                         except OSError:
@@ -684,17 +748,19 @@ class CheckpointFollower:
         instead of leaving a torn tree. Returns the applied update, or
         None when nothing changed or nothing could be SAFELY applied
         (``health()`` tells the two apart)."""
-        try:
-            upd = self.poll()
-        except ConnectionError:
-            return None               # counted by poll(); serve stale
-        if upd is None:
-            return None
-        try:
-            engine.refresh(upd.params, upd.changed_params, step=upd.step)
-        except Exception as e:  # noqa: BLE001
-            engine.rollback()
-            self.last_verify_error = \
-                f"refresh rolled back: {type(e).__name__}: {e}"
-            return None
-        return upd
+        with span("follower.sync") as sp:
+            try:
+                upd = self.poll()
+            except ConnectionError:
+                return None               # counted by poll(); serve stale
+            if upd is None:
+                return None
+            sp.set(step=upd.step)
+            try:
+                engine.refresh(upd.params, upd.changed_params, step=upd.step)
+            except Exception as e:  # noqa: BLE001
+                engine.rollback()
+                self.last_verify_error = \
+                    f"refresh rolled back: {type(e).__name__}: {e}"
+                return None
+            return upd
