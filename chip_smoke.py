@@ -32,15 +32,15 @@ incremental save wrote); on yi-6b a blob then rotted at rest in the
 replica must be caught by the follower's verify gate and healed by
 ``repair_image``. hymba's follower has no live peer: it applies the
 bundles the manager publishes into a registry directory, with no
-negotiation. On every layer of hymba's prefill it then calls
-the flash attention and SSD scan entry points on the tensors the model
-computes and holds them against the model's own results (the served
-models, as in the JAX package, run the plain attention and scan), and
-times each kernel beside its bound, its plain version and, for attention,
+negotiation. On every layer of hymba's prefill it then runs the model's
+own attention (an inference call on the card: the flash kernel) and the
+SSD scan's entry point on the tensors the model computes, holds them
+against the plain attention and the model's scan (the served model runs
+the scan's plain version), and times each kernel beside its bound, its plain version and, for attention,
 ``scaled_dot_product_attention``; last at yi-6b's attention shape (bf16
 and f32), hymba-1.5b's in f32, gemma-2b's and minicpm3-4b's (bf16 and
 f32), mamba2-130m's scan shape (bf16 and f32) and hymba-1.5b's in f32.
-The flash entry point runs the same way on every layer of a 4096-token
+The model's attention runs the same way on every layer of a 4096-token
 prefill of the served minicpm3-4b (``mla_kernel_path``: its MLA's q and k
 at 96, v at 64) before its weights are freed, and of gemma-2b drawn at
 full width and depth (``gemma_kernel_path``: MQA at head dim 256). The
@@ -1208,19 +1208,20 @@ def _train_step_card_vs_cpu(dev) -> dict:
 
 
 def phase_kernel_path(cfg, params, prompts, dev) -> dict:
-    """The flash attention and SSD scan entry points, driven on the tensors
-    the served hybrid model's prefill computes in every layer (q, k, v
-    after RoPE through the port's own ``_qkv``; x, dt, A, Bc, Cc, D through
-    the first half of its ``apply_ssm_core``), each output held against the
-    model's own ``attention`` / ``ssd_chunked`` result on the same tensors.
-    The model itself calls neither kernel, as in the JAX package. Launches
-    are counted from here to the end of the layer loop. Returns the counts,
-    the errors and layer 0's tensors."""
+    """The flash attention and SSD scan on the tensors the served hybrid
+    model's prefill computes in every layer (q, k, v after RoPE through the
+    port's own ``_qkv``; x, dt, A, Bc, Cc, D through the first half of its
+    ``apply_ssm_core``): the model's own ``attention`` (``impl`` "auto":
+    the kernel, k and v at their own KV heads) held against its plain
+    version (``plain_impl``), and the scan's entry point against the
+    model's ``ssd_chunked``. ``launches`` counts what the model's own
+    layers launch (``apply_hybrid_block``: the flash kernel, not the scan,
+    which the model runs plain) and what the checks launch, apart. Returns
+    the counts, the errors and layer 0's tensors."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.ssd_scan.ops import ssd
-    from repro_torch.models.attention import attention
-    from repro_torch.models.blocks import (_qkv, _repeat_kv,
-                                           apply_hybrid_block,
+    from repro_torch.models.attention import attention, plain_impl
+    from repro_torch.models.blocks import (_qkv, apply_hybrid_block,
                                            ssm_scan_inputs)
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.model import _unstack, embed_tokens
@@ -1228,99 +1229,113 @@ def phase_kernel_path(cfg, params, prompts, dev) -> dict:
     toks = torch.as_tensor(prompts, device=dev).long()
     B, S = toks.shape
     positions = torch.arange(S, device=dev).expand(B, S)
-    rep = cfg.n_heads // cfg.n_kv_heads
+    kw = dict(causal=True, window=cfg.window, kv_block=cfg.kv_block,
+              q_block=cfg.q_block, score_dtype=cfg.score_dtype)
     err = {"flash_vs_model": 0.0, "ssd_y_vs_model": 0.0,
            "ssd_h_vs_model": 0.0}
     layer0 = None
     t0 = time.perf_counter()
-    flash_attention.launches = 0
-    ssd.launches = 0
+    checked = {"flash_attention": 0, "ssd_scan": 0}
+    model = {"flash_attention": 0, "ssd_scan": 0}
     ssd.kernel_launches = dict.fromkeys(ssd.kernel_launches, 0)
+
+    def counts():
+        return {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd.launches}
+
+    def add(into, before):
+        for name, n in counts().items():
+            into[name] += n - before[name]
+
     with torch.inference_mode():
         x = embed_tokens(cfg, params, toks)
         for i, p in enumerate(_unstack(params["blocks"])):
             h = rms_norm(x, p["norm"], cfg.rms_eps)
             q, k, v = _qkv(cfg, p["attn"], h, positions)
             _, _, scan = ssm_scan_inputs(cfg, p["ssm"], h)
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            o = flash_attention(qt, kt, vt, causal=True, window=cfg.window)
+            n0 = counts()
+            o = attention(q, k, v, impl=cfg.attn_impl, **kw)
             y, hs = ssd(**scan, chunk=cfg.ssm_chunk)
-            o_model = attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
-                                causal=True, window=cfg.window,
-                                impl=cfg.attn_impl, kv_block=cfg.kv_block,
-                                q_block=cfg.q_block,
-                                score_dtype=cfg.score_dtype)
+            add(checked, n0)
+            o_plain = attention(q, k, v, impl=plain_impl(cfg.window, S),
+                                **kw)
             y_model, h_model = ssd_chunked(**scan, chunk=cfg.ssm_chunk)
-            err["flash_vs_model"] = max(err["flash_vs_model"], _max_err(
-                o.transpose(1, 2), o_model))
+            err["flash_vs_model"] = max(err["flash_vs_model"],
+                                        _max_err(o, o_plain))
             err["ssd_y_vs_model"] = max(err["ssd_y_vs_model"],
                                         _max_err(y, y_model))
             err["ssd_h_vs_model"] = max(err["ssd_h_vs_model"],
                                         _max_err(hs, h_model))
             if i == 0:
-                layer0 = {"qkv": (qt, kt, vt), "scan": scan}
+                layer0 = {"qkv": tuple(t.transpose(1, 2).contiguous()
+                                       for t in (q, k, v)), "scan": scan}
+            n0 = counts()
             x, _, _ = apply_hybrid_block(cfg, p, x, positions)
+            add(model, n0)
     torch.cuda.synchronize()
-    launches = {"flash_attention": flash_attention.launches,
-                "ssd_scan": ssd.launches}
     cuda_kernels = dict(ssd.kernel_launches)
     dtype = params["embed"].dtype
     check(err["flash_vs_model"] < FA_TOL[dtype],
-          f"flash kernel vs the model's attention: {err['flash_vs_model']}")
+          f"flash kernel vs the model's plain attention: "
+          f"{err['flash_vs_model']}")
     check(max(err["ssd_y_vs_model"], err["ssd_h_vs_model"]) < SSD_TOL[dtype],
           f"ssd kernel vs the model's ssd_chunked: {err}")
-    check(launches == {"flash_attention": cfg.n_layers,
-                       "ssd_scan": cfg.n_layers},
-          f"kernel launches on the path: {launches}")
+    check(model == {"flash_attention": cfg.n_layers, "ssd_scan": 0},
+          f"kernel launches of the model's own layers: {model}")
+    check(checked == {"flash_attention": cfg.n_layers,
+                      "ssd_scan": cfg.n_layers},
+          f"kernel launches of the checks: {checked}")
     check(cuda_kernels == dict.fromkeys(cuda_kernels, cfg.n_layers),
           f"the SSD scan's CUDA kernels on the path: {cuda_kernels}")
+    launches = {"flash_attention": model["flash_attention"],
+                "ssd_scan": checked["ssd_scan"]}
     log("kernel_path", seconds=time.perf_counter() - t0, layers=cfg.n_layers,
-        batch=B, prompt_len=S, launches=launches,
-        ssd_cuda_kernels=cuda_kernels, max_abs_err=err,
-        tol={"flash": FA_TOL[dtype], "ssd": SSD_TOL[dtype]})
+        batch=B, prompt_len=S, launches=launches, model_launches=model,
+        check_launches=checked, ssd_cuda_kernels=cuda_kernels,
+        max_abs_err=err, tol={"flash": FA_TOL[dtype], "ssd": SSD_TOL[dtype]})
     return {"launches": launches, "ssd_cuda_kernels": cuda_kernels,
             "err": err, "layer0": layer0}
 
 
 def _flash_layer_path(cfg, params, toks, layer_qkv, block, *, scale=None
                       ) -> dict:
-    """The flash attention entry point on every layer of a served model's
-    prefill: ``layer_qkv(p, x, positions)`` gives the layer's q, k, v as
-    the model computes them ((B, S, heads, dim); k and v un-repeated) and
-    the KV heads' repeat, the kernel's output is held against the model's
-    own ``attention`` on the same tensors (k and v repeated, as the model
-    calls it), and ``block`` moves x on through the model's own layer.
-    Launches are counted from here to the end of the layer loop."""
+    """The flash kernel on every layer of a served model's prefill:
+    ``layer_qkv(p, x, positions)`` gives the layer's q, k, v as the model
+    computes them ((B, S, heads, dim); k and v at their own heads), the
+    model's own ``attention`` on them (``impl`` "auto": the kernel) is held
+    against its plain version (``plain_impl``), and ``block`` moves x on
+    through the model's own layer. ``launches`` counts the model's own
+    layers' launches (one a layer), the checks' apart."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.models.attention import attention
-    from repro_torch.models.blocks import _repeat_kv
+    from repro_torch.models.attention import attention, plain_impl
     from repro_torch.models.model import _unstack, embed_tokens
     B, S = toks.shape
     positions = torch.arange(S, device=toks.device).expand(B, S)
+    kw = dict(causal=True, window=cfg.window, kv_block=cfg.kv_block,
+              q_block=cfg.q_block, scale=scale, score_dtype=cfg.score_dtype)
     err, t0 = 0.0, time.perf_counter()
-    flash_attention.launches = 0
+    launches = checked = 0
     with torch.inference_mode():
         x = embed_tokens(cfg, params, toks)
         for p in _unstack(params["blocks"]):
-            q, k, v, rep = layer_qkv(p, x, positions)
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            o = flash_attention(qt, kt, vt, causal=True, window=cfg.window,
-                                scale=scale)
-            o_model = attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
-                                causal=True, window=cfg.window,
-                                impl=cfg.attn_impl, kv_block=cfg.kv_block,
-                                q_block=cfg.q_block, scale=scale,
-                                score_dtype=cfg.score_dtype)
-            err = max(err, _max_err(o.transpose(1, 2), o_model))
+            q, k, v = layer_qkv(p, x, positions)
+            n0 = flash_attention.launches
+            o = attention(q, k, v, impl=cfg.attn_impl, **kw)
+            checked += flash_attention.launches - n0
+            o_plain = attention(q, k, v, impl=plain_impl(cfg.window, S),
+                                **kw)
+            err = max(err, _max_err(o, o_plain))
+            n0 = flash_attention.launches
             x = block(p, x, positions)
+            launches += flash_attention.launches - n0
     _sync(toks.device)
-    launches = flash_attention.launches
     dtype = params["embed"].dtype
     shape = [B, q.shape[2], k.shape[2], S, q.shape[3], v.shape[3]]
     check(err < FA_TOL[dtype],
-          f"{cfg.name}: flash kernel vs the model's attention: {err}")
-    check(launches == cfg.n_layers,
-          f"{cfg.name}: flash launches on the path: {launches}")
+          f"{cfg.name}: flash kernel vs the model's plain attention: {err}")
+    check(launches == cfg.n_layers and checked == cfg.n_layers,
+          f"{cfg.name}: flash launches of the model's layers {launches}, "
+          f"of the checks {checked}")
     return {"seconds": time.perf_counter() - t0, "model": cfg.name,
             "layers": cfg.n_layers, "batch": B, "prompt_len": S,
             "shape_b_hq_kvh_s_d_dv": shape, "launches": launches,
@@ -1337,12 +1352,11 @@ MLA_PATH_BATCH, MLA_PATH_LEN = 1, 4096
 
 def phase_mla_kernel_path(cfg, params, dev) -> dict:
     """minicpm3-4b's served weights (``MINICPM_LAYERS`` of its 62): on
-    every layer of a
-    prefill of ``MLA_PATH_BATCH`` x ``MLA_PATH_LEN`` tokens, q (nope +
-    rope, 96), k (the ``wkv_b`` expansion of the latent, with the shared
-    rope key) and v (64) as ``apply_mla_block`` computes them, through the
-    kernel at (96, 64) with the block's scale, against the model's
-    ``attention``."""
+    every layer of a prefill of ``MLA_PATH_BATCH`` x ``MLA_PATH_LEN``
+    tokens, q (nope + rope, 96), k (the ``wkv_b`` expansion of the latent,
+    with the shared rope key) and v (64) as ``apply_mla_block`` computes
+    them, through the model's ``attention`` with the block's scale (the
+    kernel at (96, 64)) against its plain version."""
     from repro_torch.models.blocks import _mla_qkv, apply_mla_block
     from repro_torch.models.layers import proj_heads, rms_norm
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
@@ -1355,7 +1369,7 @@ def phase_mla_kernel_path(cfg, params, dev) -> dict:
         B, S, H, _ = kv.shape
         k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope)],
                       dim=-1)
-        return q, k, v, 1
+        return q, k, v
 
     res = _flash_layer_path(
         cfg, params, _seeded_tokens(cfg, MLA_PATH_BATCH, MLA_PATH_LEN, dev),
@@ -1372,9 +1386,10 @@ def phase_gemma_kernel_path(dev) -> dict:
     """gemma-2b at full width and depth (18 layers, 2.51 B params in bf16),
     weights drawn on the card as ``run_model`` draws them; on every layer
     of a ``GEMMA_PATH_BATCH`` x ``GEMMA_PATH_LEN`` prefill, q, k and v from
-    the dense block's ``_qkv`` through the kernel at (256, 256) on the one
-    KV head, against the model's ``attention`` on k and v repeated to the
-    8 query heads. No save, no follower: the kernel path alone."""
+    the dense block's ``_qkv`` through the model's ``attention`` (the
+    kernel at (256, 256) on the one KV head) against its plain version (k
+    and v repeated to the 8 query heads). No save, no follower: the
+    kernel path alone."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.models.blocks import _qkv, apply_dense_block
@@ -1384,11 +1399,10 @@ def phase_gemma_kernel_path(dev) -> dict:
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     _sync(dev)
     init_s = time.perf_counter() - t0
-    rep = cfg.n_heads // cfg.n_kv_heads
 
     def layer_qkv(p, x, positions):
         h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
-        return (*_qkv(cfg, p, h, positions), rep)
+        return _qkv(cfg, p, h, positions)
 
     res = _flash_layer_path(
         cfg, params, _seeded_tokens(cfg, GEMMA_PATH_BATCH, GEMMA_PATH_LEN,
@@ -2311,6 +2325,7 @@ def phase_mesh_1x1(dev, layers: int, steps: int) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models import init_params
+    from repro_torch.models.attention import plain_impl
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.optim.compression import compressed_psum
@@ -2381,8 +2396,12 @@ def phase_mesh_1x1(dev, layers: int, steps: int) -> dict:
           "never launched the fingerprint kernel")
 
     prompts = make_prompts(cfg, batch, 128)
-    plain = make_prefill_step(cfg, batch, 128, dev).fn(_local_tree(p2),
-                                                         prompts)[1]
+    # one device on the attention the mesh runs (alone, an inference
+    # prefill on the card launches the flash kernel)
+    plain = make_prefill_step(cfg.replace(attn_impl=plain_impl(cfg.window,
+                                                               128)),
+                              batch, 128, dev).fn(_local_tree(p2),
+                                                  prompts)[1]
     meshed = make_prefill_step(cfg, batch, 128, dev, mesh=mesh)
     sharded = meshed.fn(p2, prompts)[1]
     check(_at_out_sharding(sharded, meshed.out_shardings[1]),
@@ -2579,7 +2598,7 @@ def phase_split_attention(dev) -> dict:
                               for a in range(0, S, rows)], dim=1)
 
         def whole():
-            return attention(q, k, v)
+            return attention(q, k, v, impl="blockwise")
 
         err = _max_err(blocks(), whole())
         check(err <= QUERY_BLOCKS_TOL[dt],
@@ -2988,8 +3007,8 @@ def phase_roofline(dev) -> dict:
     tokens) for one train step, and the serving phase's (``YI_SERVE_LAYERS``
     layers, 4 prompts of 128 tokens) for its prefill and one decode step.
     Each is counted on the real tensors and traced on fake ones
-    (``_roofline_held``); the train step's count is printed beside
-    ``train_flops``'s hand count."""
+    (``_roofline_held``), the prefill on the plain attention; the train
+    step's count is printed beside ``train_flops``'s hand count."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.launch.serve import make_prompts
@@ -3023,7 +3042,11 @@ def phase_roofline(dev) -> dict:
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     n = cfg.active_param_count()
     toks = torch.as_tensor(make_prompts(cfg, B, S), device=dev)
-    prefill = make_prefill_step(cfg, B, S, dev).fn
+    # the counter sees torch's operations alone, not the flash kernel an
+    # inference prefill on the card launches (a fake trace keeps the plain
+    # path): the prefill is held on the plain attention
+    prefill = make_prefill_step(cfg.replace(attn_impl="blockwise"), B, S,
+                                dev).fn
     out["prefill"] = _roofline_held("prefill", prefill, [params, toks],
                                     2.0 * n * B * S, 3, dev)
     cache = init_cache(cfg, B, ROOFLINE_CACHE, dev)

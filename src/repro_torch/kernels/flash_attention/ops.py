@@ -176,20 +176,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v lie on different devices")
 
 
+def _refusal(q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> Optional[str]:
+    """Why the CUDA kernels do not take q, k and v's head dims or dtypes,
+    or None where they do."""
+    pair = (q.shape[-1], v.shape[-1])
+    if pair not in HEAD_DIMS or k.shape[-1] != q.shape[-1]:
+        return (f"the kernels take head dims (D, Dv) in {HEAD_DIMS}, not "
+                f"{pair}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                f"v {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        return ("the kernel takes q, k, v all f32 or all bf16, not "
+                f"{q.dtype}, {k.dtype}, {v.dtype}")
+    return None
+
+
+def takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the CUDA kernels take q, k and v's dtypes and head dims (q's
+    and k's D, v's Dv): ``check_kernel_inputs`` as a predicate, alignment
+    aside (the launch makes the tensors contiguous, and a copy is
+    aligned)."""
+    return _refusal(q, k, v) is None
+
+
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> None:
     """Raise on what the CUDA kernels do not take: head dims (q's and k's
     D, v's Dv) outside ``HEAD_DIMS``, dtypes, and for bf16 (TMA) a data
     pointer off a 16-byte boundary. Takes tensors already made
     contiguous."""
-    pair = (q.shape[-1], v.shape[-1])
-    if pair not in HEAD_DIMS:
-        raise ValueError(f"the kernels take head dims (D, Dv) in "
-                         f"{HEAD_DIMS}, not {pair}: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("the kernel takes q, k, v all f32 or all bf16, not "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    why = _refusal(q, k, v)
+    if why is not None:
+        raise ValueError(why)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:

@@ -1,7 +1,12 @@
 """Attention — memory-bounded plain torch implementations (port of
-``repro/models/attention.py``; the JAX model runs these in pure jnp, so the
-port does too: no fused attention operator stands in for them).
+``repro/models/attention.py``, where the JAX model runs them in pure jnp),
+and the dispatcher that sends an inference call on the card to the
+hand-written flash kernel (``kernels/flash_attention``) instead.
 
+* ``attention`` — the model blocks' self-attention: the flash kernel for
+  a call that ``uses_kernel`` (no autograd, plain tensors: no mesh and no
+  fake tensors, f32 scores, a CUDA device, dtypes and head dims the
+  kernel takes), else one of the next two.
 * ``attention_blockwise`` — a loop over KV blocks with online softmax.
 * ``attention_banded`` — sliding-window attention: a loop over query
   blocks, each attending to a fixed-size (window + q_block) KV slice.
@@ -36,10 +41,16 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..sharding.ctx import local_block, local_call, settle
+from ..kernels.flash_attention import ops as flash_ops
+from ..sharding.ctx import constrain, local_block, local_call, settle
 from .layers import as_torch_dtype, recomputed, rounded
 
 NEG_INF = -1e30
+_KERNEL_DEVICE = "cuda"      # the device type the flash kernel runs on
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
 
 
 def _split_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -337,16 +348,53 @@ def on_cache_blocks(partials, finish, qs, caches,
     return run(*(settle(t) for t in qs), *(settle(t) for t in caches))
 
 
+def uses_kernel(q, k, v, *, impl="auto", score_dtype=torch.float32) -> bool:
+    """Whether ``attention`` sends this call to the flash kernel
+    (``flash_ops.flash_attention``). It reads the call alone: ``impl`` is
+    "auto" (an explicit "blockwise" or "banded" keeps that version); q, k
+    and v are plain tensors on a CUDA device, no subclass (DTensors keep
+    ``_on_query_blocks``; a fake tensor, as a trace or the roofline
+    counter makes, holds no data to launch on); no autograd records
+    through them (the kernel has no backward): grad mode off, or none of
+    them requires grad; the scores are f32, as the kernel computes them;
+    and the kernel takes their dtypes and head dims (``flash_ops.takes``)."""
+    ts = (q, k, v)
+    return impl == "auto" \
+        and all(type(t) is torch.Tensor for t in ts) \
+        and all(t.device.type == _KERNEL_DEVICE for t in ts) \
+        and not (torch.is_grad_enabled()
+                 and any(t.requires_grad for t in ts)) \
+        and as_torch_dtype(score_dtype) == torch.float32 \
+        and flash_ops.takes(q, k, v)
+
+
+def plain_impl(window: Optional[int], seq_len: int) -> str:
+    """The plain version "auto" picks at ``seq_len``: banded for a window
+    shorter than the sequence, else blockwise."""
+    return "banded" if window is not None and window < seq_len \
+        else "blockwise"
+
+
 def attention(q, k, v, *, causal=True, window=None, impl="auto",
               kv_block=512, q_block=512, scale=None,
               score_dtype=torch.float32):
-    """Dispatcher used by model blocks (self-attention, S_q == S_kv); the
-    implementation is chosen at the global sequence length. On DTensors
-    (a mesh) each rank computes its own query rows
-    (``_on_query_blocks``)."""
+    """Dispatcher used by model blocks (self-attention, S_q == S_kv). q:
+    (B, S, Hq, Dk); k: (B, S, KVH, Dk); v: (B, S, KVH, Dv), KVH dividing
+    Hq. A call that ``uses_kernel`` (an inference call on the card) runs
+    the flash kernel, which groups q's heads over k's and v's own; every
+    other call (training through autograd, a mesh, the CPU, bf16 scores,
+    an explicit ``impl``, a head pair the kernel lacks) runs a plain
+    version, with k and v repeated to q's heads as the mesh's
+    ``act_kv_rep`` places them, "auto" choosing the version at the global
+    sequence length (``plain_impl``). On DTensors (a mesh) each rank
+    computes its own query rows (``_on_query_blocks``)."""
+    if uses_kernel(q, k, v, impl=impl, score_dtype=score_dtype):
+        return _on_kernel(q, k, v, causal=causal, window=window, scale=scale)
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k, v = (constrain(_repeat_kv(t, rep), "act_kv_rep") for t in (k, v))
     if impl == "auto":
-        impl = "banded" if (window is not None and window < q.shape[1]) \
-            else "blockwise"
+        impl = plain_impl(window, q.shape[1])
     if impl == "banded":
         if window is None:
             raise ValueError("banded attention needs a window")
@@ -360,6 +408,15 @@ def attention(q, k, v, *, causal=True, window=None, impl="auto",
     if isinstance(q, DTensor):
         return _on_query_blocks(fn, q, k, v)
     return fn(q, k, v)
+
+
+def _on_kernel(q, k, v, *, causal, window, scale):
+    """The flash kernel on the blocks' (B, S, H, D) layout: q, k and v in
+    as (B, H, S, D), the output back as (B, S, Hq, Dv)."""
+    o = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window, scale=scale)
+    return o.transpose(1, 2)
 
 
 def _on_query_blocks(fn, q, k, v):

@@ -56,10 +56,6 @@ from .ssm import (causal_conv, causal_conv_step, ssd_chunked,
 _INT32_MAX = 2 ** 31 - 1
 
 
-def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
-    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
-
-
 def _qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
          positions: torch.Tensor):
     q = proj_heads(x, p["wq"])
@@ -73,12 +69,10 @@ def _qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 
 def _self_attention(cfg: ModelConfig, p: Dict, h: torch.Tensor,
                     positions: torch.Tensor):
-    """-> (attn output (B,S,d), k, v)."""
+    """-> (attn output (B,S,d), k, v); k and v go to ``attention`` at
+    their own KV heads."""
     q, k, v = _qkv(cfg, p, h, positions)
-    rep = cfg.n_heads // cfg.n_kv_heads
-    kr = constrain(_repeat_kv(k, rep), "act_kv_rep")
-    vr = constrain(_repeat_kv(v, rep), "act_kv_rep")
-    o = attention(q, kr, vr, causal=True, window=cfg.window,
+    o = attention(q, k, v, causal=True, window=cfg.window,
                   impl=cfg.attn_impl, kv_block=cfg.kv_block,
                   q_block=cfg.q_block, score_dtype=cfg.score_dtype)
     o = constrain(o, "act_q")
@@ -465,9 +459,11 @@ def _mla_qkv(cfg: ModelConfig, p: Dict, h: torch.Tensor,
 
 def apply_mla_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                     positions: torch.Tensor, collect_cache: bool = False):
-    """Keys and values expanded from the latent; the attention is the
-    plain one (q/k dim nope+rope, v dim v_head_dim), as in the reference.
-    The cache holds the latent of all S positions (no ring)."""
+    """Keys and values expanded from the latent, one a query head, into
+    ``attention`` (q/k dim nope+rope, v dim v_head_dim), as in the
+    reference; on the card, in inference, that is the flash kernel at its
+    (96, 64) pair. The cache holds the latent of all S positions (no
+    ring)."""
     B, S, d = x.shape
     H = cfg.n_heads
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim

@@ -42,6 +42,7 @@ from ..core import (LayerStore, PassiveRegistry, PushRejected, PushStats,
 from ..device import resolve_device
 from ..ft.faults import CrashInjected, fault_point
 from ..ft.retry import RetryPolicy
+from ..kernels.flash_attention import ops as flash_ops
 from ..models import decode_step, init_cache, prefill
 from ..models.config import ModelConfig
 from ..tracing import recording, span
@@ -299,8 +300,11 @@ class Engine:
         reference's ``key, sub = split(key)`` sequence).
 
         Spans: ``engine.prefill`` runs to the first token's copy to the
-        host, and each ``engine.decode_step`` to the copy of the token it
-        produced (the last one to ``logits_last``'s); each copy is an
+        host (attribute ``attn_kernel_launches``: the flash attention
+        kernel's launches in the prefill, one an attention layer where
+        ``models.attention.uses_kernel`` holds, else 0), and each
+        ``engine.decode_step`` to the copy of the token it produced (the
+        last one to ``logits_last``'s); each copy is an
         ``engine.token_wait``, the host blocked on the device."""
         B, S = prompts.shape
         if S + steps > self.max_len and not self.cfg.window:
@@ -310,7 +314,8 @@ class Engine:
                   seq=self._batches):
             gen = torch.Generator(device=self.device).manual_seed(seed)
             out = np.zeros((B, steps), np.int32)
-            with span("engine.prefill"):
+            with span("engine.prefill") as sp:
+                launched = flash_ops.flash_attention.launches
                 cache = init_cache(self.cfg, B, self.max_len, self.device)
                 # prefill builds a cache sized cache_len(S); splice it into
                 # the full-size decode cache ring-consistently
@@ -318,6 +323,8 @@ class Engine:
                     self.cfg, self.params,
                     torch.as_tensor(prompts, dtype=torch.long,
                                     device=self.device))
+                sp.set(attn_kernel_launches=flash_ops.flash_attention.launches
+                       - launched)
                 cache = self._splice(cache, pf_cache, S)
                 tok = self._sample(logits, temperature, gen)
                 with span("engine.token_wait"):

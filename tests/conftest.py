@@ -14,3 +14,8 @@ def max_examples(default: int) -> int:
     the nightly CI job raises it via HYPOTHESIS_MAX_EXAMPLES (see
     .github/workflows/ci.yml) to hunt rare generative counterexamples."""
     return int(os.environ.get("HYPOTHESIS_MAX_EXAMPLES", default))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips without one")
