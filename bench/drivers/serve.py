@@ -303,6 +303,7 @@ def run(ctx) -> None:
                     res = engine.generate(p, new)
                 t_done = time.perf_counter()
                 latency += [t_done - t_send] * B
+                ctx.note("batch_s", [length, round(t_done - t_send, 4)])
                 t_send = t_done
                 served.append((p, res.tokens, trainer.version))
                 ctx.rec.add("tokens", B * (length + new))

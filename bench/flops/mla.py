@@ -19,12 +19,19 @@ def _shared(m: dict) -> int:
             + H * m["vh"] * d + 3 * d * m["F"])
 
 
+def attention_pair_ops(c: dict) -> int:
+    """Operations of one (query, key) pair over all heads of a layer, with
+    keys and values expanded from the latent (prefill and training)."""
+    m = dims(c)
+    return 2 * m["H"] * (m["nope"] + m["rope"] + m["vh"])
+
+
 def serve_flops(c: dict, batch: int, prompt: int, new: int) -> float:
     m = dims(c)
     L, H, kr = m["L"], m["H"], m["kr"]
     head = 2 * m["d"] * m["V"]
     pre_tok = 2 * L * (_shared(m) + kr * H * (m["nope"] + m["vh"]))
-    pair = 2 * H * (m["nope"] + m["rope"] + m["vh"])
+    pair = attention_pair_ops(c)
     pre = prompt * pre_tok + L * pair * prompt * (prompt + 1) / 2 + head
     dec_tok = 2 * L * (_shared(m) + H * m["nope"] * kr + H * kr * m["vh"])
     dec = 0.0
@@ -39,6 +46,5 @@ def train_flops(c: dict, batch: int, seq: int) -> float:
     H, kr = m["H"], m["kr"]
     layer = _shared(m) + kr * H * (m["nope"] + m["vh"])
     matrix = m["L"] * layer + m["d"] * m["V"]
-    pair = 2 * H * (m["nope"] + m["rope"] + m["vh"])
-    attn = 3 * m["L"] * pair * seq * (seq + 1) / 2 * batch
+    attn = 3 * m["L"] * attention_pair_ops(c) * seq * (seq + 1) / 2 * batch
     return 6.0 * matrix * batch * seq + attn

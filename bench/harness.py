@@ -11,6 +11,7 @@ cell declares, end-to-end without ``--trace`` and per-layer with it.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -21,7 +22,9 @@ from . import spec
 from .trace import WINDOW, Recorder, Trace, breakdown, device_profile
 
 # the configuration file's keys (Hugging Face names) -> the port's
-# ModelConfig fields: the file states what the system under test runs
+# ModelConfig fields: the file states what the system under test runs.
+# The port's ``window`` covers every layer, so "sliding_window" is refused
+# where the file says the window covers only some (see ``port_fields``).
 PORT_FIELDS = {
     "num_hidden_layers": "n_layers", "hidden_size": "d_model",
     "vocab_size": "vocab", "num_attention_heads": "n_heads",
@@ -30,9 +33,89 @@ PORT_FIELDS = {
     "rms_norm_eps": "rms_eps", "q_lora_rank": "q_lora_rank",
     "kv_lora_rank": "kv_lora_rank", "qk_nope_head_dim": "qk_nope_dim",
     "qk_rope_head_dim": "qk_rope_dim", "v_head_dim": "v_head_dim",
+    "n_routed_experts": "n_experts", "num_local_experts": "n_experts",
+    "num_experts_per_tok": "top_k", "moe_intermediate_size": "d_ff_expert",
+    "sliding_window": "window",
 }
+# the configuration file's keys that set no ModelConfig field, and why. A
+# file may add its own in a "descriptive" map (key -> why), and its own
+# key -> field pairs in a "port_fields" map, for fields a later port adds.
+DESCRIPTIVE = {
+    "arch": "names the port's registered configuration, whose fields the "
+            "mapped keys replace",
+    "family": "names the plain reference and the operation counts "
+              "(bench/reference/<family>.py, bench/flops/<family>.py)",
+    "source": "the published configuration the file copies",
+    "paper": "the paper that describes the model",
+    "model_type": "the published architecture's name; arch and family say "
+                  "what runs",
+    "hidden_act": "each family's reference and the port run SwiGLU with "
+                  "SiLU; another activation is another family",
+    "max_position_embeddings": "the published context; the traffic sets "
+                               "the lengths run and the cache's size",
+    "dtype": "the precision served and trained in: port_config sets "
+             "param_dtype and compute_dtype from it",
+    "reduced": "each key changed from the source, and why",
+    "assumed": "each size the source does not give, and why",
+    "deployment": "the deployment the cut configuration stands for",
+    "store": "the checkpoint store's settings the deploy driver runs",
+    "tie_word_embeddings": "the references run an untied head: a file that "
+                           "says true is refused",
+    "use_sliding_window": "whether the published window is on: a file "
+                          "that says false may not set sliding_window",
+    "port_fields": "the file's own key -> ModelConfig field pairs",
+    "descriptive": "the file's own keys that set no field, and why",
+}
+# keys that say a sliding window covers only some layers, and published
+# architectures whose window alternates with global layers without one
+_WINDOW_PATTERN = ("layer_types", "sliding_window_pattern",
+                   "max_window_layers")
+_ALTERNATING = ("gemma2", "gemma3", "gemma3_text", "cohere2")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 SEED_SPACE = 2 ** 63
+
+
+def port_fields(conf: dict) -> dict:
+    """The ModelConfig fields a configuration file sets: its keys mapped
+    by ``PORT_FIELDS`` and by the file's own ``port_fields``, which may
+    name only fields that ModelConfig has. Refuses a key that is neither
+    applied nor described (by ``DESCRIPTIVE`` or the file's own
+    ``descriptive``), since the file would state something the port does
+    not run; and a file that states a tied head or a sliding window over
+    only some layers, which the port's fields cannot say."""
+    from repro_torch.models.config import ModelConfig
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    name = conf.get("arch")
+    own = conf.get("port_fields", {})
+    lacking = sorted(f for f in own.values() if f not in known)
+    if lacking:
+        raise ValueError(f"{name}: port_fields names {lacking}, "
+                         f"which ModelConfig does not have")
+    applied = {**PORT_FIELDS, **own}
+    told = conf.get("descriptive", {})
+    both = sorted(set(applied) & set(told))
+    if both:
+        raise ValueError(f"{name}: {both} are applied to ModelConfig and "
+                         f"listed as descriptive")
+    if not all(isinstance(why, str) and why for why in told.values()):
+        raise ValueError(f"{name}: every descriptive key needs its reason")
+    unknown = sorted(set(conf) - set(applied) - set(DESCRIPTIVE) - set(told))
+    if unknown:
+        raise ValueError(
+            f"{name}: {unknown} set no ModelConfig field and are not "
+            f"described: map each in the file's \"port_fields\" (key -> "
+            f"field), or give its reason in the file's \"descriptive\" "
+            f"(key -> why)")
+    if conf.get("tie_word_embeddings", False) is not False:
+        raise ValueError(f"{name}: tie_word_embeddings must be false: the "
+                         f"references run an untied head")
+    if conf.get("sliding_window") is not None and (
+            conf.get("use_sliding_window") is False
+            or any(k in conf for k in _WINDOW_PATTERN)
+            or conf.get("model_type") in _ALTERNATING):
+        raise ValueError(f"{name}: sliding_window covers only some layers "
+                         f"here, and the port's window covers every layer")
+    return {f: conf[k] for k, f in applied.items() if k in conf}
 
 
 def port_config(conf: dict):
@@ -40,9 +123,9 @@ def port_config(conf: dict):
     that the benchmark's weight layout is the port's parameter tree."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import param_specs
-    fields = {f: conf[k] for k, f in PORT_FIELDS.items() if k in conf}
     cfg = get_config(conf["arch"]).replace(
-        param_dtype=conf["dtype"], compute_dtype=conf["dtype"], **fields)
+        param_dtype=conf["dtype"], compute_dtype=conf["dtype"],
+        **port_fields(conf))
     ref, _ = spec.family(conf)
     want = {p: (tuple(s), torch.float32 if std is None
                 else _DTYPES[conf["dtype"]])

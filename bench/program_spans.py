@@ -56,3 +56,10 @@ def bytes_per_changed(trace, name: str) -> Optional[float]:
     if not changed or not found:
         return None
     return sum(s.attrs.get("bytes", 0) for s in found) / changed
+
+
+def mean_attr(trace, name: str, attr: str) -> Optional[float]:
+    """Mean of the attribute ``attr`` over the spans called ``name`` that
+    carry it."""
+    vals = [s.attrs[attr] for s in spans(trace, name) if attr in s.attrs]
+    return sum(vals) / len(vals) if vals else None

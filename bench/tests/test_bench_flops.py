@@ -1,16 +1,19 @@
 """The operation counts against hand sums, the port's parameter count, and
-torch's FLOP counter run over the plain reference."""
+torch's FLOP counter run over the plain reference: the last two for every
+declared configuration, through its family's ``bench/flops`` module, at
+full width and at the family's tiny widths."""
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from bench import spec
 from bench.flops import dense, mla
-from bench.tests.tiny import TINY_DENSE, TINY_MLA
+from bench.tests.tiny import family
 
 DECL = spec.declaration()
 YI = spec.config(DECL, "yi-6b")
 MINICPM = spec.config(DECL, "minicpm3-4b")
+CONFIGS = [c["name"] for c in DECL["configs"]]
 
 
 def test_yi_layer_products_by_hand():
@@ -26,14 +29,14 @@ def test_minicpm_layer_products_by_hand():
     assert mla._shared(mla.dims(MINICPM)) + 256 * 40 * 128 == m
 
 
-@pytest.mark.parametrize("conf,flops", [(YI, dense), (MINICPM, mla)],
-                         ids=["yi-6b", "minicpm3-4b"])
-def test_matrix_params_match_the_ports_count(conf, flops):
+@pytest.mark.parametrize("name", CONFIGS)
+def test_matrix_params_match_the_ports_count(name):
     """6 x the matrix params in train_flops: every parameter but the
     embedding table and the norms, with the unpadded head."""
     from bench.harness import port_config
+    conf = spec.config(DECL, name)
     cfg = port_config(conf)
-    ref, _ = spec.family(conf)
+    ref, flops = spec.family(conf)
     norms = sum(int(torch.Size(s).numel())
                 for s, std in ref.weight_spec(conf).values() if std is None)
     d, V, Vp = cfg.d_model, cfg.vocab, -(-cfg.vocab // 256) * 256
@@ -45,10 +48,7 @@ def test_matrix_params_match_the_ports_count(conf, flops):
 
 
 def _pair_ops(conf, flops):
-    if flops is dense:
-        return conf["num_hidden_layers"] * dense.attention_pair_ops(conf)
-    m = mla.dims(conf)
-    return m["L"] * 2 * m["H"] * (m["nope"] + m["rope"] + m["vh"])
+    return conf["num_hidden_layers"] * flops.attention_pair_ops(conf)
 
 
 def test_serve_flops_sum_prefill_and_decode_by_hand():
@@ -62,13 +62,13 @@ def test_serve_flops_sum_prefill_and_decode_by_hand():
     assert dense.serve_flops(c, 2, S, new) == 2 * want
 
 
-@pytest.mark.parametrize("tiny,flops", [(TINY_DENSE, dense), (TINY_MLA, mla)],
-                         ids=["dense", "mla"])
-def test_prefill_equals_torchs_count_of_the_reference(tiny, flops):
+@pytest.mark.parametrize("name", CONFIGS)
+def test_prefill_equals_torchs_count_of_the_reference(name):
     """The reference computes every (query, key) pair and masks the later
     keys; the prefill's useful work is its count less the masked pairs."""
-    conf = dict(YI if flops is dense else MINICPM, **tiny)
-    ref, _ = spec.family(conf)
+    conf = spec.config(DECL, name)
+    conf = dict(conf, **family(conf["family"]))
+    ref, flops = spec.family(conf)
     w = ref.init_weights(conf, torch.Generator().manual_seed(0), "cpu",
                          torch.float32)
     T = 5

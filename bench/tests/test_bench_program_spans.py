@@ -1,12 +1,7 @@
 """The per-layer metrics that read the port's own spans
 (``bench/program_spans.py``): each reads a value from a tiny traced run on
-the CPU, and nothing from spans that lie outside the run's own spans.
-
-``BENCHMARK.json`` does not declare them yet: declaring one adds a case to
-the parametrized reader tests of ``test_bench_metrics.py``, which need an
-``expect`` entry in ``fixtures/trace_small.json`` for it. ``PENDING`` holds
-the entries a benchmark change would append; the tiny runs here use the
-declaration with them appended, as the harness then would."""
+the CPU, and nothing from spans that lie outside the run's own spans; and
+every declared per-layer entry keeps the declaration's rules."""
 import time
 
 import pytest
@@ -14,70 +9,50 @@ import pytest
 from bench import program_spans, spec
 from bench.harness import run_cell
 from bench.tests.test_bench_declaration import NAME, UNIT
-from bench.tests.tiny import TINY
+from bench.tests.tiny import overrides
 from bench.trace import Recorder, Trace
 
-
-def _entry(name, unit, layer, moves, cell, source="host_clock"):
-    return {"name": name, "unit": unit, "better": "lower", "source": source,
-            "layer": layer, "moves": moves, "workloads": [cell]}
+DECL = spec.declaration()
+SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
 
 
-_SERVE, _DEPLOY = "yi-6b.serve", "minicpm3-4b.deploy"
-_STORE, _FOLLOW = "checkpoint manager and store", "follower and registry"
-PENDING = [
-    _entry("prefill_ms.serve", "ms", "engine", "serve_tokens_per_s", _SERVE),
-    _entry("decode_step_ms.serve", "ms", "engine", "serve_tokens_per_s",
-           _SERVE),
-    _entry("decode_dispatch_share.serve", "%", "engine",
-           "serve_tokens_per_s", _SERVE),
-    _entry("decode_dispatch_share.deploy", "%", "engine",
-           "serve_tokens_per_s.deploy", _DEPLOY),
-    _entry("detect_ms.deploy", "ms", _STORE, "deploy_s", _DEPLOY),
-    _entry("inject_ms.deploy", "ms", _STORE, "deploy_s", _DEPLOY),
-    _entry("flush_ms.deploy", "ms", _STORE, "deploy_s", _DEPLOY),
-    _entry("retain_ms.deploy", "ms", _STORE, "deploy_s", _DEPLOY),
-    _entry("pull_ms.deploy", "ms", _FOLLOW, "deploy_s", _DEPLOY),
-    _entry("verify_ms.deploy", "ms", _FOLLOW, "deploy_s", _DEPLOY),
-    _entry("load_ms.deploy", "ms", _FOLLOW, "deploy_s", _DEPLOY),
-    _entry("refresh_ms.deploy", "ms", _FOLLOW, "deploy_s", _DEPLOY),
-    _entry("refreshed_per_changed.deploy", "ratio", _FOLLOW, "deploy_s",
-           _DEPLOY, source="program_counter"),
-    _entry("verified_per_changed.deploy", "ratio", _FOLLOW, "deploy_s",
-           _DEPLOY, source="program_counter"),
-]
-READERS = {cell: [m["name"] for m in PENDING if m["workloads"] == [cell]]
-           for cell in (_SERVE, _DEPLOY)}
-METRICS = [(cell, m) for cell, ms in READERS.items() for m in ms]
+# the metrics declared to read the port's spans (or their attributes)
+METRICS = [(w["name"], m["name"]) for w in DECL["workloads"]
+           for m in spec.per_layer(DECL, w["name"])
+           if m["source"] == "program_span"]
+CELLS = sorted({cell for cell, _ in METRICS})
+UNITS = {m["name"]: m["unit"] for m in DECL["per_layer"]}
+LAUNCHES = [(cell, m) for cell, m in METRICS if UNITS[m] == "launches"]
 
 
-def _declaration():
-    decl = spec.declaration()
-    return {**decl, "per_layer": decl["per_layer"] + PENDING}
+def _traced_tiny_run(cell):
+    res, ctx = run_cell(cell, 3000000001, 0.6, True, "cpu",
+                        time.perf_counter(), decl=DECL,
+                        overrides=overrides(cell))
+    assert res["correct"], res["checks"]
+    return Trace(ctx.rec, ctx.window.seconds), res["metrics"]
 
 
 @pytest.fixture(scope="module")
 def runs():
     """One tiny traced run of each cell -> (its trace, its metrics)."""
-    out = {}
-    for cell in READERS:
-        res, ctx = run_cell(cell, 3000000001, 0.6, True, "cpu",
-                            time.perf_counter(), decl=_declaration(),
-                            overrides=TINY[cell])
-        assert res["correct"]
-        out[cell] = (Trace(ctx.rec, ctx.window.seconds), res["metrics"])
-    return out
+    return {cell: _traced_tiny_run(cell) for cell in CELLS}
 
 
-@pytest.mark.parametrize("entry", PENDING, ids=lambda e: e["name"])
-def test_pending_entry_keeps_the_declarations_rules(entry):
-    decl = spec.declaration()
-    layer_names = {m["name"] for m in decl["end_to_end"] + decl["per_layer"]}
+@pytest.mark.parametrize("entry", DECL["per_layer"], ids=lambda e: e["name"])
+def test_per_layer_entry_keeps_the_declarations_rules(entry):
+    e2e = {m["name"] for m in DECL["end_to_end"]}
+    names = [m["name"] for m in DECL["end_to_end"] + DECL["per_layer"]]
     assert NAME.match(entry["name"]) and UNIT.match(entry["unit"])
-    assert entry["name"] not in layer_names
-    assert entry["layer"] in {m["layer"] for m in decl["per_layer"]}
-    (cell,) = entry["workloads"]
-    assert entry["moves"] in {m["name"] for m in spec.end_to_end(decl, cell)}
+    assert names.count(entry["name"]) == 1
+    assert entry["source"] in SOURCES
+    assert entry["better"] in ("lower", "higher")
+    assert 1 <= len(entry["layer"]) <= 200 and "\n" not in entry["layer"]
+    assert entry["moves"] in e2e
+    for cell in entry.get("workloads", [w["name"] for w in DECL["workloads"]]):
+        spec.cell(DECL, cell)
+        assert entry["moves"] in {m["name"] for m in
+                                  spec.end_to_end(DECL, cell)}
     assert callable(spec.reader(entry["name"]).read)
 
 
@@ -85,7 +60,11 @@ def test_pending_entry_keeps_the_declarations_rules(entry):
 def test_reader_reads_a_tiny_traced_run(runs, cell, metric):
     trace, metrics = runs[cell]
     got = spec.reader(metric).read(trace)
-    assert got is not None and got > 0
+    assert got is not None and got >= 0
+    if UNITS[metric] != "launches":
+        # a count of kernel launches reads 0 on the CPU's plain route;
+        # test_launches_read_one_a_layer_on_the_kernels_route counts them
+        assert got > 0
     assert metrics[metric]["value"] == pytest.approx(got)
     if "share" in metric:
         assert got <= 100
@@ -114,10 +93,42 @@ def test_the_deploy_stages_add_up(runs):
 def test_each_batch_has_one_prefill_and_its_decode_steps(runs):
     trace, _ = runs["yi-6b.serve"]
     batches = len(trace.durations("generate"))
-    steps = TINY["yi-6b.serve"]["traffic"]["new_tokens"]
+    steps = overrides("yi-6b.serve")["traffic"]["new_tokens"]
     assert len(program_spans.spans(trace, "engine.prefill")) == batches
     assert len(program_spans.spans(trace, "engine.decode_step")) == \
         batches * steps
+
+
+class _Counted:
+    """Stands in for the flash kernel's entry point on the CPU: counts
+    each call in ``launches`` and runs the real one (its plain version)."""
+
+    def __init__(self, real):
+        self.real = real
+        self.launches = 0
+
+    def __call__(self, *a, **k):
+        self.launches += 1
+        return self.real(*a, **k)
+
+
+@pytest.mark.parametrize("cell,metric", LAUNCHES)
+def test_launches_read_one_a_layer_on_the_kernels_route(monkeypatch, cell,
+                                                        metric):
+    """With the kernel's route taken on the CPU (its device type set to
+    the CPU's, every head dim taken), each prefill launches it once a
+    layer, and the reader reads that."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention
+    monkeypatch.setattr(attention, "_KERNEL_DEVICE", "cpu")
+    monkeypatch.setattr(flash_ops, "takes", lambda q, k, v: True)
+    monkeypatch.setattr(flash_ops, "flash_attention",
+                        _Counted(flash_ops.flash_attention))
+    trace, metrics = _traced_tiny_run(cell)
+    layers = overrides(cell)["config"]["num_hidden_layers"]
+    assert flash_ops.flash_attention.launches > 0
+    assert spec.reader(metric).read(trace) == layers
+    assert metrics[metric]["value"] == layers
 
 
 @pytest.mark.parametrize("cell,metric", METRICS)

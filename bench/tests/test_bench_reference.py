@@ -9,25 +9,27 @@ from bench.harness import port_config
 from bench.reference import train as ref_train
 from bench.reference.common import flatten
 from bench.reference.serve import widest_gap
-from bench.tests.tiny import TINY_DENSE, TINY_MLA
+from bench.tests.tiny import family
 
 DECL = spec.declaration()
-CASES = [("yi-6b", TINY_DENSE), ("minicpm3-4b", TINY_MLA)]
+CASES = [c["name"] for c in DECL["configs"]]
 
 
-def _tiny(name, tiny):
-    conf = dict(spec.config(DECL, name), **tiny, dtype="float32")
+def _tiny(name):
+    """A declared configuration at its family's tiny widths, in f32."""
+    conf = spec.config(DECL, name)
+    conf = dict(conf, **family(conf["family"]), dtype="float32")
     ref, _ = spec.family(conf)
     w = ref.init_weights(conf, torch.Generator().manual_seed(3), "cpu",
                          torch.float32)
     return conf, ref, w
 
 
-@pytest.mark.parametrize("name,tiny", CASES, ids=[c[0] for c in CASES])
-def test_prefill_and_decode_match_the_reference(name, tiny):
+@pytest.mark.parametrize("name", CASES)
+def test_prefill_and_decode_match_the_reference(name):
     from repro_torch.models import prefill
     from repro_torch.serve import Engine
-    conf, ref, w = _tiny(name, tiny)
+    conf, ref, w = _tiny(name)
     cfg = port_config(conf)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 21)))
@@ -48,7 +50,7 @@ def test_prefill_and_decode_match_the_reference(name, tiny):
 
 
 def test_the_fp8_control_departs_from_the_reference():
-    conf, ref, w = _tiny(*CASES[0])
+    conf, ref, w = _tiny(CASES[0])
     toks = torch.as_tensor(np.random.default_rng(1).integers(0, 199, (1, 40)))
     h = ref.hidden(conf, w, toks)
     h8 = ref.hidden(conf, w, toks, "fp8")
@@ -56,12 +58,12 @@ def test_the_fp8_control_departs_from_the_reference():
     assert 1e-3 < rel < 0.3
 
 
-@pytest.mark.parametrize("name,tiny", CASES, ids=[c[0] for c in CASES])
-def test_three_train_steps_match_the_reference(name, tiny):
+@pytest.mark.parametrize("name", CASES)
+def test_three_train_steps_match_the_reference(name):
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.adamw import init_opt_state
     from repro_torch.train.step import TrainConfig, make_train_step
-    conf, ref, w = _tiny(name, tiny)
+    conf, ref, w = _tiny(name)
     cfg = port_config(conf)
     adamw = dict(spec.traffic("pretrain")["adamw"], warmup_steps=2)
     rng = np.random.default_rng(2)

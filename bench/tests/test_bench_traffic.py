@@ -10,7 +10,7 @@ from bench import spec
 from bench.drivers import serve, train
 from bench.harness import Context
 from bench.reference.common import flatten
-from bench.tests.tiny import TINY
+from bench.tests.tiny import overrides
 
 LENGTHS = spec.traffic("long_docs_deploy")["prompt_lengths"]
 
@@ -48,8 +48,9 @@ def test_without_deploys_no_batch_waits():
 def _ctx(cell, seed):
     decl = spec.declaration()
     w = spec.cell(decl, cell)
-    conf = {**spec.config(decl, w["config"]), **TINY[cell]["config"]}
-    mix = {**spec.traffic(w["traffic"]), **TINY[cell]["traffic"]}
+    small = overrides(cell, decl)
+    conf = {**spec.config(decl, w["config"]), **small["config"]}
+    mix = {**spec.traffic(w["traffic"]), **small["traffic"]}
     return Context(conf, mix, spec.limits(cell), seed, 1.0, "cpu", False)
 
 
